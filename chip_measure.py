@@ -5,13 +5,17 @@ numbers behind PERF.md's findings:
 1. sort on / off A/B of the persist launch loop (interleaved repetitions);
 2. a sweep of the launch bound ``persist_iters`` with the sort on;
 3. ``render.render_pass`` end to end (prep included) and the host prep alone;
-4. one ``torch.profiler`` run: device time per kernel and the idle share.
+4. one ``torch.profiler`` run: device time per kernel and the idle share;
+5. the respawn megakernel K3 on its three cells: the Book-3 Cornell box
+   (600x600, 100 spp stratified, depth 50, MIS), the Book-2 Cornell box
+   (600x600, 200 spp, path) and the flagship at 3840x2160 (16 spp): the
+   kernel alone over ``--reps`` reps, then one profiled end-to-end call.
 
     python3 chip_measure.py [--reps 3] [--spp 1024]
 
-Book-1 random spheres at 1200x675, depth 50, as ``chip_smoke.py`` drives it.
-Prints the card's name, power limit and SM clock first.  Needs CUDA; imports
-nothing of JAX.
+Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
+``chip_smoke.py`` drives it.  Prints the card's name, power limit and SM
+clock first.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -93,18 +97,57 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    # device activity only, so each kernel's time is counted once
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        st = loop(True, iters0)
-    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    evs.sort(key=lambda e: -e.self_device_time_total)
-    dev_s = sum(e.self_device_time_total for e in evs) / 1e6
-    print(f"profiled wall {st['wall']:.4f} s, device kernel time "
-          f"{dev_s:.4f} s, idle share {1 - dev_s / st['wall']:.4f}")
-    for e in evs[:12]:
-        ms = e.self_device_time_total / 1e3
-        print(f"  {ms:10.2f} ms  x {e.count:4d}  {e.key[:100]}")
+    def profiled(label: str, fn) -> None:
+        """One profiled call of fn: wall, device kernel time, idle share
+        and the top kernels.  Device activity only, so each kernel's time
+        is counted once."""
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        evs.sort(key=lambda e: -e.self_device_time_total)
+        dev_s = sum(e.self_device_time_total for e in evs) / 1e6
+        print(f"{label}: profiled wall {wall:.4f} s, device kernel time "
+              f"{dev_s:.4f} s, idle share {1 - dev_s / wall:.4f}")
+        for e in evs[:12]:
+            ms = e.self_device_time_total / 1e3
+            print(f"  {ms:10.2f} ms  x {e.count:4d}  {e.key[:100]}")
+
+    profiled("flagship sorted loop", lambda: loop(True, iters0))
+
+    s3, c3, _ = models.book3_cornell_box()
+    s2, c2, _ = models.book2_cornell_box()
+    s4k, c4k, _ = models.book1_random_spheres(dict(image_width=3840))
+    cam4k = derive_camera(c4k, device=dev)
+    cells = [
+        ("K3 book3_cornell_box 600x600 100 spp", s3, c3, 100,
+         dict(mis=True, stratified=True, sqrt_spp=10),
+         lambda: render.render_image(s3, c3, integrator="mis", device=dev)),
+        ("K3 book2_cornell_box 600x600 200 spp", s2, c2, 200, {},
+         lambda: render.render_image(s2, c2, device=dev)),
+        ("K3 flagship 3840x2160 16 spp", s4k, c4k, 16, {},
+         lambda: render.render_pass(s4k, cam4k, c4k.seed, width=3840,
+                                    height=2160, spp=16, max_depth=depth,
+                                    device=dev)),
+    ]
+    for label, sc, cf, cspp, kw, end_to_end in cells:
+        cw, ch = cf.image_width, cf.image_height
+        tk = mk.prepare_megakernel(sc, derive_camera(cf), width=cw,
+                                   height=ch, device=dev, **kw)
+        for rep in range(-1, args.reps):  # rep -1 warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mk.respawn_pass(tk, cf.seed, 0, cspp, depth)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"{label} kernel rep {rep}: {wall:.4f} s "
+                  f"{cw * ch * cspp / wall / 1e6:.2f} Mpaths/s", flush=True)
+        end_to_end()  # warm: tables cached, swizzle index built
+        profiled(f"{label} end to end", end_to_end)
     return 0
 
 

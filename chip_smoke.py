@@ -1,15 +1,26 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``rustraytrace_tpu_torch``) on one
 NVIDIA GPU: builds the CUDA kernels from ``rustraytrace_tpu_torch/csrc``,
-holds each against its plain PyTorch version, and drives the flagship render
-(Book-1 random spheres, 1200x675, depth 50, 1024 spp in one pass) through
-``render.render_pass`` on the card.
+holds each against its plain PyTorch version, and drives the port's two
+main paths on the card:
+
+* the flagship (Book-1 random spheres, 1200x675, depth 50, 1024 spp in one
+  pass) through ``render.render_pass`` on the sorted persist kernel K2;
+* the Book-3 Cornell box (600x600, 100 spp stratified 10x10, depth 50,
+  NEE/MIS) through ``render.render_image`` on the respawn megakernel K3;
+
+then the other K3 routes (the Book-2 Cornell box at 200 spp, a 4K flagship
+pass), each also held bitwise against the plain twin at its full lane
+count.  Phases: 1 env, 2 build, 3 K1, 4 K2 launch, 4b K2 launch with MIS
+and quads, 5 sort invariance, 6 flagship, 7 Book-3 Cornell box on K3,
+8 other K3 routes and the two-level cluster cull.  The plain twins run at
+reduced spp on the card (the line of each comparison states its size).
 
     python3 chip_smoke.py
 
 Each phase prints one line; any failure exits non-zero.  The last lines are
 the card's name and power limit (as ``nvidia-smi`` prints them), a JSON line
-with the kernels' agreement, launch counts and times, and
+with the kernels' agreement, launch counts, times and bounds, and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.  Imports nothing of JAX.
 """
@@ -66,6 +77,103 @@ def _rays(n: int, seed: int):
 
 FLAGSHIP_SPP = 1024  # one pass, as the JAX package's bench.py runs it
 
+# Least-time bounds: the larger of the FP32
+# operations over 67 TFLOP/s and the bytes over 3.35 TB/s of an H100 SXM at
+# 700 W.  Operations per unit of work are counted from the sources
+# (csrc/rtt_common.cuh, csrc/path.cuh): each FP32 add, multiply, compare,
+# min/max, select, sqrt, divide, sin and cos counts as one.  The Philox
+# integer work and the camera spawns are not counted, so the bounds are low.
+PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
+OPS = dict(sphere=30, box=25, quad=61, path_bounce=231, mis_bounce=317,
+           light_pick=5, light_sample=(15, 76), light_pdf=(68, 50))
+
+
+def _bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by) of a function doing ``ops`` operations and
+    moving ``nbytes`` bytes."""
+    t_ops, t_bytes = 1e3 * ops / PEAK_OPS, 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _path_ops(work, tables) -> float:
+    """Operations of a path-tracer launch from its work counters (bounces,
+    sphere rows tested, cluster boxes tested) and its tables."""
+    bounces, spheres, boxes = (int(v) for v in work.tolist())
+    per_bounce = OPS["path_bounce"] + tables.n_quads * OPS["quad"]
+    if tables.mis:
+        kinds = [int(k) for k in tables.ltab[:tables.n_lights, 0].tolist()]
+        per_bounce += (OPS["mis_bounce"] - OPS["path_bounce"]
+                       + OPS["light_pick"] * (len(kinds) - 1)
+                       + sum(OPS["light_sample"][k] + OPS["light_pdf"][k]
+                             for k in kinds))
+    return (bounces * per_bounce + spheres * OPS["sphere"]
+            + boxes * OPS["box"])
+
+
+def _cuda_ms_once(fn):
+    """(fn(), device milliseconds of that one call)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _agreement(img: np.ndarray, ref: np.ndarray):
+    """(max |channel-mean diff|, max |z| of 4x4 block means): each block's
+    standard error from the spread of its per-pixel differences."""
+    h, w = img.shape[:2]
+    diff = img - ref
+    zs = []
+    for by in np.array_split(np.arange(h), 4):
+        for bx in np.array_split(np.arange(w), 4):
+            blk = diff[by[0]:by[-1] + 1, bx[0]:bx[-1] + 1].reshape(-1, 3)
+            se = blk.std(axis=0, ddof=1) / np.sqrt(blk.shape[0])
+            zs.append(np.abs(blk.mean(axis=0)) / np.maximum(se, 1e-12))
+    return float(np.abs(diff.mean(axis=(0, 1))).max()), float(np.max(zs))
+
+
+def _field_scene(n: int, seed: int):
+    """n small spheres scattered over the flagship's ground sphere."""
+    from rustraytrace_tpu_torch import SceneBuilder
+
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian((0.5, 0.5, 0.5)))
+    mat = b.lambertian((0.4, 0.2, 0.1))
+    for x, z, r in zip(rng.uniform(-15, 15, n), rng.uniform(-15, 15, n),
+                       rng.uniform(0.1, 0.3, n)):
+        b.add_sphere((float(x), float(r), float(z)), float(r), mat)
+    return b.build()
+
+
+def _registers(log: str) -> dict:
+    """Kernel -> 'N regs, S B spill' from the ptxas -v build log."""
+    out, name, spill = {}, None, "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            base = next((k for k in ("persist_kernel", "respawn_kernel",
+                                     "sphere_hit_kernel") if k in mangled),
+                        mangled)
+            # <MIS, COUNT>: the COUNT instances run only to count work
+            name = base + ("<mis" if "ILb1E" in mangled else
+                           "<path" if "ILb0E" in mangled else "")
+            if "<" in name:
+                name += ",count>" if "ELb1EE" in mangled else ">"
+        elif "spill stores" in ln:
+            spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif "registers" in ln and name:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out[name] = f"{regs} regs, {spill} B spill"
+            name = None
+    return out
+
 
 def main() -> int:
     import torch
@@ -85,13 +193,12 @@ def main() -> int:
     print(f"[1 env] python {sys.version.split()[0]} torch {torch.__version__}"
           f" cuda {torch.version.cuda} | {nvcc} | {smi}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _cuda.build_info["log"].splitlines()
-            if "registers" in ln]
+    regs = _registers(_cuda.build_info["log"])
     print(f"[2 build] {build_s:.2f} s (nvcc {_cuda.build_info['seconds']:.2f}"
-          f" s) {regs}", flush=True)
+          f" s, one process per source) {regs}", flush=True)
 
     # ---- 3: K1 closest hit vs its plain version, flagship tables
     scene, cfg, _ = models.book1_random_spheres(
@@ -108,15 +215,24 @@ def main() -> int:
     k1_ms = _cuda_ms(lambda: hit.sphere_hit(o, d, tm, sph, quad, False), 20)
     k1_plain_ms = _cuda_ms(
         lambda: hit.sphere_hit_plain(o, d, tm, sph, quad, False), 3)
+    # full scan: every ray tests every sphere; 7 f32 in and 2 words out
+    n_rays = o.shape[0]
+    k1_bound, k1_by = _bound(n_rays * (sph.shape[0] * OPS["sphere"] + 6),
+                             n_rays * 9 * 4)
     print(f"[3 K1 sphere_hit] 2^20 rays x {sph.shape[0]} spheres: idx equal "
           f"{same_i:.6f}, max |dt| {k1_err:.3g}, t and idx bitwise equal "
           f"(required): {k1_equal}; kernel {k1_ms:.3f} ms, plain "
-          f"{k1_plain_ms:.3f} ms", flush=True)
+          f"{k1_plain_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})",
+          flush=True)
     _check(k1_equal, "K1 disagrees with plain")
     k1_entry = dict(name="sphere_hit", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/sphere_hit.cu",
                     replaces="rustraytrace_tpu/ops/pallas_hit.py:164",
-                    max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms)
+                    launches=0, max_abs_err=k1_err, ms=k1_ms,
+                    plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
+                    library_ms=None,
+                    ms_shape=f"2^20 rays x {sph.shape[0]} spheres",
+                    plain_ms_shape=f"2^20 rays x {sph.shape[0]} spheres")
 
     # ---- 4: one bounded persist launch, kernel vs plain
     s4, c4, _ = models.book1_random_spheres(dict(image_width=160))
@@ -143,12 +259,39 @@ def main() -> int:
         torch.zeros((wf.N_STATE, RF), device=dev), slF, tabF, 3, **kwF), 5)
     p_plain_ms = _cuda_ms(lambda: wf.persist_step_plain(
         torch.zeros((wf.N_STATE, RF), device=dev), slF, tabF, 3, **kwF), 1)
+    workF = torch.zeros(3, dtype=torch.int64, device=dev)
+    wf.persist_step(torch.zeros((wf.N_STATE, RF), device=dev), slF, tabF, 3,
+                    work=workF, **kwF)
+    # state read and written once, the slot read once
+    p_bound, p_by = _bound(_path_ops(workF, tabF), RF * (2 * wf.N_STATE + 1)
+                           * 4)
     print(f"[4 persist launch] 160x90 4 spp 8 iters ({R4} lanes): lanes "
           f"bitwise equal per row min {row_frac.min().item():.6f}, max "
           f"|diff| {p_err:.3g}, state bitwise equal (required): {p_equal}; "
           f"at {RF} lanes x 8 iters: kernel {p_ms:.2f} ms, plain "
-          f"{p_plain_ms:.2f} ms", flush=True)
+          f"{p_plain_ms:.2f} ms; work {workF.tolist()} (bounces, sphere "
+          f"rows, boxes), bound {p_bound:.3f} ms ({p_by})", flush=True)
     _check(p_equal, "persist kernel disagrees with its plain step")
+
+    # ---- 4b: one bounded persist launch with MIS, quads and strata
+    sB, cB, _ = models.book3_cornell_box(dict(image_width=160))
+    tabB = mk.prepare_megakernel(sB, derive_camera(cB), width=160,
+                                 height=160, mis=True, stratified=True,
+                                 sqrt_spp=2, device=dev)
+    stB_k = torch.zeros((wf.N_STATE, tabB.n_lanes), device=dev)
+    stB_p = stB_k.clone()
+    slB = torch.arange(tabB.n_lanes, dtype=torch.int32, device=dev)
+    kwB = dict(persist_iters=8, spp=4, max_depth=50, sample_offset=0)
+    wf.persist_step(stB_k, slB, tabB, 11, **kwB)
+    wf.persist_step_plain(stB_p, slB, tabB, 11, **kwB)
+    torch.cuda.synchronize()
+    b_equal = bool(torch.equal(stB_k, stB_p))
+    print(f"[4b persist launch, MIS] book3_cornell_box 160x160 4 spp (2x2 "
+          f"strata) 8 iters ({tabB.n_lanes} lanes, {tabB.n_quads} quads, "
+          f"{tabB.n_lights} lights): max |diff| "
+          f"{torch.abs(stB_k - stB_p).max().item():.3g}, state bitwise "
+          f"equal (required): {b_equal}", flush=True)
+    _check(b_equal, "MIS persist kernel disagrees with its plain step")
 
     # ---- 5: bitwise invariance of the kernel render to the ray sort
     s5, c5, _ = models.book1_random_spheres(dict(image_width=320))
@@ -211,28 +354,190 @@ def main() -> int:
     px_equal = np.mean(np.all(kern8 == plain8, axis=-1))
     img_equal = bool(np.array_equal(kern8, plain8))
     img_err = float(np.max(np.abs(kern8 - plain8)))
-    diff = acc_np / spp - plain8 / 8.0
-    ch_err = np.abs(diff.mean(axis=(0, 1)))
-    zs = []
-    for by in np.array_split(np.arange(h), 4):
-        for bx in np.array_split(np.arange(w), 4):
-            blk = diff[by[0]:by[-1] + 1, bx[0]:bx[-1] + 1].reshape(-1, 3)
-            se = blk.std(axis=0, ddof=1) / np.sqrt(blk.shape[0])
-            zs.append(np.abs(blk.mean(axis=0)) / np.maximum(se, 1e-12))
-    zmax = float(np.max(zs))
+    ch_err, zmax = _agreement(acc_np / spp, plain8 / 8.0)
     print(f"[6 flagship check] same-seed {w}x{h} 8 spp kernel vs plain: "
           f"pixels bitwise equal {px_equal:.6f}, max |diff| {img_err:.3g}, "
           f"image bitwise equal (required): {img_equal}; {spp} spp kernel "
-          f"vs 8 spp plain: channel mean |diff| {ch_err.max():.4g} (need < "
+          f"vs 8 spp plain: channel mean |diff| {ch_err:.4g} (need < "
           f"0.01), 4x4 block max |z| {zmax:.3f} (need < 5)", flush=True)
     _check(img_equal, "kernel and plain flagship renders differ")
-    _check(ch_err.max() < 0.01 and zmax < 5.0, "flagship image is off")
+    _check(ch_err < 0.01 and zmax < 5.0, "flagship image is off")
 
+    # ---- 7: the Book-3 Cornell box through render_image, one K3 pass
+    s7, c7, integ7 = models.book3_cornell_box()
+    w7, h7, spp7, seed7 = c7.image_width, c7.image_height, 100, c7.seed
+    _check((w7, h7, c7.samples_per_pixel, c7.max_depth, integ7,
+            c7.stratified) == (600, 600, spp7, 50, "mis", True),
+           "book3_cornell_box is not the 600x600 100 spp MIS config")
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img7, st7 = render.render_image(s7, c7, integrator=integ7, device=dev)
+    torch.cuda.synchronize()
+    wall7 = time.perf_counter() - t0
+    counts7 = _cuda.launch_counts()
+    passes7 = -(-spp7 // render.effective_spp_per_pass(c7, spp7, w7 * h7))
+    acc7 = st7["accum"] / st7["spp_done"]
+    print(f"[7 book3_cornell_box] {w7}x{h7} {spp7} spp (10x10 strata) depth "
+          f"50 MIS through render_image: {wall7:.3f} s, "
+          f"{w7 * h7 * spp7 / wall7:.6g} paths/s, {passes7} pass(es); "
+          f"kernel launch counts {counts7}; channel means "
+          f"{np.round(acc7.mean(axis=(0, 1)), 5).tolist()}", flush=True)
+    _check(counts7["megakernel"] == passes7 > 0,
+           "the Cornell box did not run one K3 launch per pass")
+    _check(counts7["persist"] == 0, "the Cornell box ran the persist kernel")
+    _check(st7["spp_done"] == spp7 and img7.shape == (h7, w7, 3)
+           and bool(np.isfinite(acc7).all()), "Cornell box image")
+
+    # K3 on the main path's tables (10x10 strata), same seed, 4 spp from
+    # sample 48 (strata (8,4), (9,4), (0,5), (1,5): the row wraps): kernel
+    # vs plain twin vs the unsorted persist loop
+    cam7 = derive_camera(c7, device=dev)
+    tab100 = mk.prepare_megakernel_cached(
+        s7, cam7, width=w7, height=h7, tile_rows=mk.respawn_tile_rows(s7),
+        mis=True, stratified=True, sqrt_spp=10, device=dev)
+    R7, off7 = tab100.n_lanes, 48
+    k3_sums = mk.respawn_pass(tab100, seed7, off7, 4, 50)
+    p3_sums, k3_plain_ms = _cuda_ms_once(
+        lambda: mk.respawn_pass_plain(tab100, seed7, off7, 4, 50))
+    k2_sums = wf._wavefront_pass_persist(
+        tab100, seed7, off7, spp=4, max_depth=50,
+        persist_iters=wf.persist_plain_iters(4), sort_rays=False)
+    k3_equal = bool(torch.equal(k3_sums, p3_sums))
+    k3_err = torch.abs(k3_sums - p3_sums).max().item()
+    k3_k2 = bool(torch.equal(k3_sums, k2_sums))
+    # the statistical reference of the 100-spp image: a 4-spp plain render
+    # in 2x2 strata through the entry point
+    plain4 = render.render_pass(
+        s7, cam7, seed7, width=w7, height=h7, spp=4, max_depth=50,
+        integrator="mis", stratified=True, sqrt_spp=2, backend="plain",
+        device=dev).cpu().numpy()
+    ch7, z7 = _agreement(acc7, plain4 / 4.0)
+    print(f"[7 K3 check] same-seed {R7} lanes x 4 spp (10x10 strata, samples "
+          f"{off7}-{off7 + 3}): kernel vs plain twin max |diff| {k3_err:.3g},"
+          f" bitwise equal (required): {k3_equal}; K3 sums == unsorted K2 "
+          f"loop sums bitwise (required): {k3_k2}; {spp7} spp kernel vs 4 "
+          f"spp (2x2 strata) plain: channel mean |diff| {ch7:.4g} (need < "
+          f"0.01), 4x4 block max |z| {z7:.3f} (need < 5)", flush=True)
+    _check(k3_equal, "K3 and its plain twin differ")
+    _check(k3_k2, "K3 and the unsorted persist loop differ")
+    _check(ch7 < 0.01 and z7 < 5.0, "Cornell box image is off")
+
+    # K3 at the main path's shape, 372,736 lanes x 100 spp, and at the plain
+    # twin's (4 spp); the work counted by the COUNT instance
+    k3_ms = _cuda_ms(lambda: mk.respawn_pass(tab100, seed7, 0, spp7, 50), 2)
+    k3_ms4 = _cuda_ms(lambda: mk.respawn_pass(tab100, seed7, off7, 4, 50), 3)
+    work7 = torch.zeros(3, dtype=torch.int64, device=dev)
+    mk.respawn_pass(tab100, seed7, 0, spp7, 50, work=work7)
+    k3_bound, k3_by = _bound(_path_ops(work7, tab100), R7 * 3 * 4)
+    print(f"[7 K3 timing] {R7} lanes: kernel {k3_ms:.2f} ms at {spp7} spp, "
+          f"{k3_ms4:.3f} ms at 4 spp; plain twin {k3_plain_ms:.2f} ms at 4 "
+          f"spp; work at {spp7} spp {work7.tolist()} (bounces, sphere rows, "
+          f"boxes), {int(work7[0]) / (R7 * spp7):.3f} bounces/path, bound "
+          f"{k3_bound:.3f} ms ({k3_by})", flush=True)
+
+    # ---- 8: the other K3 routes, each held against the plain twin at its
+    # full lane count and reduced spp
+    s8, c8, integ8 = models.book2_cornell_box()
+    w8, h8 = c8.image_width, c8.image_height
+    passes8 = -(-200 // render.effective_spp_per_pass(c8, 200, w8 * h8))
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st8 = render.render_image(s8, c8, integrator=integ8, device=dev)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    counts8 = _cuda.launch_counts()
+    acc8 = st8["accum"] / st8["spp_done"]
+    cam8 = derive_camera(c8, device=dev)
+    tab8 = mk.prepare_megakernel_cached(
+        s8, cam8, width=w8, height=h8, tile_rows=mk.respawn_tile_rows(s8),
+        device=dev)
+    k8 = mk.respawn_pass(tab8, c8.seed, 0, 4, c8.max_depth)
+    p8 = mk.respawn_pass_plain(tab8, c8.seed, 0, 4, c8.max_depth)
+    eq8, err8 = bool(torch.equal(k8, p8)), torch.abs(k8 - p8).max().item()
+    print(f"[8 book2_cornell_box] {w8}x{h8} {st8['spp_done']} spp depth "
+          f"{c8.max_depth} path through render_image: {wall8:.3f} s, "
+          f"{w8 * h8 * 200 / wall8:.6g} paths/s, {passes8} passes; kernel "
+          f"launch counts {counts8}; same-seed {tab8.n_lanes} lanes x 4 spp "
+          f"kernel vs plain twin max |diff| {err8:.3g}, bitwise equal "
+          f"(required): {eq8}", flush=True)
+    _check(counts8["megakernel"] == passes8 and counts8["persist"] == 0,
+           "book2_cornell_box did not run one K3 launch per pass")
+    _check(eq8, "K3 and its plain twin differ on book2_cornell_box")
+    _check(st8["spp_done"] == 200 and bool(np.isfinite(acc8).all())
+           and acc8.mean() > 0.05, "book2_cornell_box image")
+
+    s4k, c4k, _ = models.book1_random_spheres(dict(image_width=3840))
+    w4k, h4k = c4k.image_width, c4k.image_height
+    cam4k = derive_camera(c4k, device=dev)
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc4k = render.render_pass(s4k, cam4k, c4k.seed, width=w4k, height=h4k,
+                               spp=16, max_depth=50, device=dev)
+    torch.cuda.synchronize()
+    wall4k = time.perf_counter() - t0
+    counts4k = _cuda.launch_counts()
+    tab4k = mk.prepare_megakernel_cached(
+        s4k, cam4k, width=w4k, height=h4k,
+        tile_rows=mk.respawn_tile_rows(s4k), mis=False, stratified=False,
+        sqrt_spp=0, device=dev)
+    k4k = mk.respawn_pass(tab4k, c4k.seed, 0, 1, 50)
+    p4k, p4k_ms = _cuda_ms_once(
+        lambda: mk.respawn_pass_plain(tab4k, c4k.seed, 0, 1, 50))
+    eq4k = bool(torch.equal(k4k, p4k))
+    err4k = torch.abs(k4k - p4k).max().item()
+    print(f"[8 flagship 4K] {w4k}x{h4k} 16 spp depth 50 through render_pass "
+          f"({tab4k.n_lanes} slot lanes > 2 Mi: K3 with the SAH cull over "
+          f"{tab4k.n_clusters} clusters): {wall4k:.3f} s, "
+          f"{w4k * h4k * 16 / wall4k:.6g} paths/s;"
+          f" kernel launch counts {counts4k}; same-seed 1 spp kernel vs plain "
+          f"twin ({p4k_ms:.0f} ms) max |diff| {err4k:.3g}, bitwise equal "
+          f"(required): {eq4k}", flush=True)
+    _check(counts4k["megakernel"] == 1 and counts4k["persist"] == 0,
+           "the 4K flagship pass did not run one K3 launch")
+    _check(eq4k, "K3 and its plain twin differ on the 4K flagship")
+    _check(bool(torch.isfinite(acc4k).all()), "non-finite 4K sums")
+
+    # the two-level cull (>= 16 clusters), which no ported reference scene
+    # reaches: 1500 spheres on the ground, K3 vs plain twin
+    sF = _field_scene(1500, 4)
+    tabS = mk.prepare_megakernel(sF, derive_camera(c5), width=320,
+                                 height=c5.image_height, device=dev)
+    kS = mk.respawn_pass(tabS, 7, 0, 4, 50)
+    pS = mk.respawn_pass_plain(tabS, 7, 0, 4, 50)
+    eqS, errS = bool(torch.equal(kS, pS)), torch.abs(kS - pS).max().item()
+    print(f"[8 two-level cull] 1500-sphere field 320x180 4 spp: "
+          f"{tabS.n_sclusters} super-clusters of {tabS.n_clusters} clusters;"
+          f" K3 vs plain twin max |diff| {errS:.3g}, bitwise equal "
+          f"(required): {eqS}", flush=True)
+    _check(tabS.n_sclusters > 1, "the field scene has no super-clusters")
+    _check(eqS, "K3 and its plain twin differ under the two-level cull")
+
+    k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
+               "flagship_4k": err4k, "field_1500": errS}
     kernels = [dict(name="persist", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/persist.cu",
                     replaces="rustraytrace_tpu/ops/pallas_wavefront.py:382",
                     launches=counts["persist"], max_abs_err=img_err,
-                    ms=p_ms, plain_ms=p_plain_ms)]
+                    ms=p_ms, plain_ms=p_plain_ms, bound_ms=p_bound,
+                    bound_by=p_by, library_ms=None,
+                    ms_shape=f"{RF} lanes x 8 iterations, flagship",
+                    plain_ms_shape=f"{RF} lanes x 8 iterations, flagship"),
+               dict(name="megakernel", route="cuda",
+                    source="rustraytrace_tpu_torch/csrc/megakernel.cu",
+                    replaces="rustraytrace_tpu/ops/pallas_megakernel.py:2087",
+                    launches=counts7["megakernel"],
+                    max_abs_err=max(k3_errs.values()),
+                    max_abs_err_by_route=k3_errs,
+                    ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
+                    bound_by=k3_by, library_ms=None,
+                    ms_shape=f"{R7} lanes x {spp7} spp, book3_cornell_box",
+                    plain_ms_shape=f"{R7} lanes x 4 spp, book3_cornell_box",
+                    ms_at_plain_shape=k3_ms4)]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
+          f"started", flush=True)
     print(json.dumps({"off_path_kernels": [k1_entry]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,404 +1,90 @@
-// K2 sub-slice (a): one bounded launch of the persist path tracer.
+// K2: one bounded launch of the persist path tracer.
 //
 // Replaces rustraytrace_tpu/ops/pallas_wavefront.py:_persist_raw (kernel
 // body: the persist branch of _make_kernel, pallas_megakernel.py:1856-1991,
-// with sorted_lanes=True, has_image=False, mis=False; spheres, sky or flat
-// background, solid albedo).  Plain twin: ops/wavefront.py
+// with sorted_lanes=True, has_image=False; spheres, quads, sky or flat
+// background, solid albedo; the path or the NEE/MIS integrator, stratified
+// or jittered camera samples).  Plain twin: ops/wavefront.py
 // persist_step_plain.
 //
 // One thread per lane.  A thread loads its lane's 20 state words and slot,
-// runs up to persist_iters iterations of {bank a finished path, respawn the
-// next camera ray, one bounce} while the lane has work, and stores the
-// state back in place.  Random numbers are Philox keyed by (slot, absolute
-// sample index, bounce, stream), so a lane's path does not depend on the
-// launch or the thread that runs it.
+// runs up to persist_iters iterations of the shared lane step (path.cuh)
+// while the lane has work, and stores the state back in place.
 //
-// Intersection walks the two-level SAH cluster hierarchy per thread: a
-// cluster's AABB is slab-tested against the thread's own ray and best t,
-// and its (unroll-padded) sphere range is scanned only when the box can
-// still hold a closer hit.  The cull is conservative and the winner test is
-// a strict "<" in table order, so the winner is the one a full scan finds
-// (the plain twin's brute-force scan).  The TPU kernel culled a whole
-// 4096-lane tile at once ("any lane hits the box"), which is Mosaic control
-// flow; a Hopper thread can branch on its own ray.
+// Intersection walks the two-level SAH cluster hierarchy per thread (see
+// path.cuh): the TPU kernel culled a whole 4096-lane tile at once ("any lane
+// hits the box"), which is Mosaic control flow; a Hopper thread can branch
+// on its own ray.
 //
 // Bound on this card: FP32 throughput of the sphere quadric loop, with warp
 // divergence (threads of a warp visit different clusters and run different
 // path lengths) as the main loss; the tables (~20 KB) stay in L1/L2.  This
 // first version does nothing about either: no shared-memory staging, no
 // warp votes, no tuning of block size or iteration bound.
-#include "rtt_common.cuh"
+#include "path.cuh"
 
 namespace {
 
-using rtt::BIG;
-using rtt::T_MAX;
-using rtt::T_MIN;
-
 constexpr int N_STATE = 20;
-constexpr int J_COLS = 24;  // joined table columns (ops/megakernel.py J_*)
-constexpr int J_CX = 0, J_INVR = 7, J_KIND = 8, J_AR = 9, J_FUZZ = 12,
-              J_IOR = 13;
-constexpr int BLK = 32;  // screen swizzle block
-constexpr int RR_START_BOUNCE = 5;
 
-struct Tables {
-  const float4* geom;  // [N] cx, cy, cz, r2 in cluster order
-  const float* tab;    // [N, 24] joined sphere + material table
-  int n_rows;
-  const float* clb;  // [C, 8] cluster lo3, hi3
-  const int* cls;    // [C+1] cluster starts / unroll
-  int n_clusters;
-  const float* sclb;  // [S, 8] super-cluster bounds
-  const int* scls;    // [S+1] super-cluster starts (in clusters)
-  int n_sclusters;
-  int unroll;
-};
-
-// slab test of an AABB [lo3, hi3] against the ray, entry before best t
-__device__ __forceinline__ bool box_hit(const float* b, float ox, float oy,
-                                        float oz, float ivx, float ivy,
-                                        float ivz, float bt) {
-  const float tx1 = (b[0] - ox) * ivx;
-  const float tx2 = (b[3] - ox) * ivx;
-  const float ty1 = (b[1] - oy) * ivy;
-  const float ty2 = (b[4] - oy) * ivy;
-  const float tz1 = (b[2] - oz) * ivz;
-  const float tz2 = (b[5] - oz) * ivz;
-  const float t1 = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
-                         fminf(tz1, tz2));
-  const float t2 = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                         fmaxf(tz1, tz2));
-  return (t1 <= t2) && (t2 > T_MIN) && (t1 < bt);
-}
-
-__device__ __forceinline__ void scan_spheres(const Tables& T, int lo, int hi,
-                                             float ox, float oy, float oz,
-                                             float dx, float dy, float dz,
-                                             float a, float inv_a, float* bt,
-                                             int* bi) {
-  for (int s = lo; s < hi; ++s) {
-    const float4 g = T.geom[s];
-    bool ok;
-    const float root = rtt::sphere_root(g.x, g.y, g.z, g.w, ox, oy, oz, dx,
-                                        dy, dz, a, inv_a, &ok);
-    if (ok && root < *bt) {
-      *bt = root;
-      *bi = s;
-    }
-  }
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float sg = d < 0.0f ? -1e-20f : 1e-20f;
-  return 1.0f / (fabsf(d) < 1e-20f ? sg : d);
-}
-
-// closest sphere hit: (best t or BIG, winner row or -1)
-__device__ void intersect(const Tables& T, float ox, float oy, float oz,
-                          float dx, float dy, float dz, float a, float inv_a,
-                          float* t_out, int* i_out) {
-  float bt = BIG;
-  int bi = -1;
-  const int U = T.unroll;
-  if (T.n_clusters > 0) {
-    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
-    if (T.n_sclusters > 1) {
-      for (int sc = 0; sc < T.n_sclusters; ++sc) {
-        if (!box_hit(T.sclb + 8 * sc, ox, oy, oz, ivx, ivy, ivz, bt))
-          continue;
-        for (int c = T.scls[sc]; c < T.scls[sc + 1]; ++c) {
-          if (!box_hit(T.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt))
-            continue;
-          scan_spheres(T, T.cls[c] * U, T.cls[c + 1] * U, ox, oy, oz, dx, dy,
-                       dz, a, inv_a, &bt, &bi);
-        }
-      }
-    } else {
-      for (int c = 0; c < T.n_clusters; ++c) {
-        if (!box_hit(T.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt)) continue;
-        scan_spheres(T, T.cls[c] * U, T.cls[c + 1] * U, ox, oy, oz, dx, dy,
-                     dz, a, inv_a, &bt, &bi);
-      }
-    }
-  } else {
-    scan_spheres(T, 0, T.n_rows, ox, oy, oz, dx, dy, dz, a, inv_a, &bt, &bi);
-  }
-  *t_out = bt;
-  *i_out = bi;
-}
-
-struct Lane {
-  float tm, ox, oy, oz, dx, dy, dz, ax, ay, az, rx, ry, rz, alive, b, done,
-      sx, sy, sz, mid;
-};
-
-// one bounce of a live lane (bounce_body, pallas_megakernel.py:1202-1559,
-// path integrator); expression order as in ops/wavefront.py _bounce_plain
-__device__ void bounce(Lane& L, const Tables& T, const float* bg, int sky_bg,
-                       int max_depth, float4 u) {
-  const float ox = L.ox, oy = L.oy, oz = L.oz;
-  const float dx = L.dx, dy = L.dy, dz = L.dz;
-  float ax = L.ax, ay = L.ay, az = L.az;
-  float rx = L.rx, ry = L.ry, rz = L.rz;
-  float alive = L.alive;
-  const float b = L.b;
-
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv_a = 1.0f / a;
-  float t;
-  int bi;
-  intersect(T, ox, oy, oz, dx, dy, dz, a, inv_a, &t, &bi);
-  const bool hit = t < BIG;
-  const float* row = T.tab + (hit ? bi : 0) * J_COLS;
-  const float kind = hit ? row[J_KIND] : 0.0f;
-  const float car = row[J_AR], cag = row[J_AR + 1], cab = row[J_AR + 2];
-  const float fz = row[J_FUZZ], io = row[J_IOR];
-  const float invr = row[J_INVR];
-  const float owx = hit ? (t * dx - (row[J_CX] - ox)) * invr : 0.0f;
-  const float owy = hit ? (t * dy - (row[J_CX + 1] - oy)) * invr : 0.0f;
-  const float owz = hit ? (t * dz - (row[J_CX + 2] - oz)) * invr : 1.0f;
-
-  // background on a miss (renderer.wgsl:233-239)
-  const float inv_len = 1.0f / sqrtf(a);
-  float bgr, bgg, bgb;
-  if (sky_bg) {
-    const float sa = 0.5f * (dy * inv_len + 1.0f);
-    bgr = (1.0f - sa) + sa * 0.5f;
-    bgg = (1.0f - sa) + sa * 0.7f;
-    bgb = (1.0f - sa) + sa * 1.0f;
-  } else {
-    bgr = bg[0];
-    bgg = bg[1];
-    bgb = bg[2];
-  }
-  const float missf = alive * (hit ? 0.0f : 1.0f);
-  rx = rx + missf * ax * bgr;
-  ry = ry + missf * ay * bgg;
-  rz = rz + missf * az * bgb;
-  alive = alive * (hit ? 1.0f : 0.0f);
-  const float px_ = ox + t * dx;
-  const float py_ = oy + t * dy;
-  const float pz_ = oz + t * dz;
-
-  const float d_dot_ow = dx * owx + dy * owy + dz * owz;
-  const bool front = d_dot_ow < 0.0f;
-  const float sgn = front ? 1.0f : -1.0f;
-  const float nx = sgn * owx;
-  const float ny = sgn * owy;
-  const float nz = sgn * owz;
-
-  // emission (DiffuseLight adds, then dies)
-  const bool is_light = kind == 3.0f;
-  const float lf = alive * (is_light ? 1.0f : 0.0f);
-  rx = rx + lf * ax * car;
-  ry = ry + lf * ay * cag;
-  rz = rz + lf * az * cab;
-  alive = alive * (is_light ? 0.0f : 1.0f);
-
-  // shared random unit vector (renderer.wgsl:78-83)
-  const float rz_ = u.y * 2.0f - 1.0f;
-  const float rr_ = sqrtf(fmaxf(1.0f - rz_ * rz_, 0.0f));
-  const float phi = u.x * rtt::TWO_PI;
-  const float rvx = rr_ * cosf(phi);
-  const float rvy = rr_ * sinf(phi);
-  const float rvz = rz_;
-  // lambertian: n + ruv with degenerate guard
-  float lx = nx + rvx;
-  float ly = ny + rvy;
-  float lz = nz + rvz;
-  if ((lx * lx + ly * ly + lz * lz) < 1e-16f) {
-    lx = nx;
-    ly = ny;
-    lz = nz;
-  }
-  // metal: reflect(unit d, n) + fuzz * ruv
-  const float ux = dx * inv_len;
-  const float uy = dy * inv_len;
-  const float uz = dz * inv_len;
-  const float udn = ux * nx + uy * ny + uz * nz;
-  const float mx = ux - 2.0f * udn * nx + fz * rvx;
-  const float my = uy - 2.0f * udn * ny + fz * rvy;
-  const float mz = uz - 2.0f * udn * nz + fz * rvz;
-  const bool met_ok = (mx * nx + my * ny + mz * nz) > 0.0f;
-  // dielectric: Snell / total internal reflection / Schlick choice
-  const float ri = front ? 1.0f / io : io;
-  const float cos_t = fminf(-udn, 1.0f);
-  const float sin2 = fmaxf(1.0f - cos_t * cos_t, 0.0f);
-  const bool cannot = ri * ri * sin2 > 1.0f;
-  float r0 = (1.0f - ri) / (1.0f + ri);
-  r0 = r0 * r0;
-  const float one_m = 1.0f - cos_t;
-  const float om2 = one_m * one_m;
-  const float schl = r0 + (1.0f - r0) * om2 * om2 * one_m;
-  const bool refl_choice = cannot || (schl > u.z);
-  const float ppx = ri * (ux + cos_t * nx);
-  const float ppy = ri * (uy + cos_t * ny);
-  const float ppz = ri * (uz + cos_t * nz);
-  const float pp2 = ppx * ppx + ppy * ppy + ppz * ppz;
-  const float par = -sqrtf(fmaxf(fabsf(1.0f - pp2), 1e-12f));
-  const float ex = refl_choice ? ux - 2.0f * udn * nx : ppx + par * nx;
-  const float ey = refl_choice ? uy - 2.0f * udn * ny : ppy + par * ny;
-  const float ez = refl_choice ? uz - 2.0f * udn * nz : ppz + par * nz;
-
-  const bool is_met = kind == 1.0f;
-  const bool is_die = kind == 2.0f;
-  const bool is_iso = kind == 4.0f;
-  const float ndx = is_met ? mx : (is_die ? ex : (is_iso ? rvx : lx));
-  const float ndy = is_met ? my : (is_die ? ey : (is_iso ? rvy : ly));
-  const float ndz = is_met ? mz : (is_die ? ez : (is_iso ? rvz : lz));
-  const float atr = is_die ? 1.0f : car;
-  const float atg = is_die ? 1.0f : cag;
-  const float atb = is_die ? 1.0f : cab;
-  alive = alive * ((is_met && !met_ok) ? 0.0f : 1.0f);
-  bool live = alive > 0.0f;
-  ax = ax * (live ? atr : 1.0f);
-  ay = ay * (live ? atg : 1.0f);
-  az = az * (live ? atb : 1.0f);
-  // Russian roulette from bounce 5 (renderer.wgsl:225-231)
-  if (max_depth > RR_START_BOUNCE) {
-    const bool do_rr = b >= (float)RR_START_BOUNCE;
-    const float pmax = fmaxf(ax, fmaxf(ay, az));
-    const float p = fminf(fmaxf(pmax, 0.05f), 0.95f);
-    const bool killed = do_rr && !(u.w <= p);
-    alive = alive * (killed ? 0.0f : 1.0f);
-    const float scale = (do_rr && alive > 0.0f) ? 1.0f / p : 1.0f;
-    ax = ax * scale;
-    ay = ay * scale;
-    az = az * scale;
-  }
-  live = alive > 0.0f;
-  const float b1 = b + 1.0f;
-  L.ox = live ? px_ : ox;
-  L.oy = live ? py_ : oy;
-  L.oz = live ? pz_ : oz;
-  L.dx = live ? ndx : dx;
-  L.dy = live ? ndy : dy;
-  L.dz = live ? ndz : dz;
-  L.ax = ax;
-  L.ay = ay;
-  L.az = az;
-  L.rx = rx;
-  L.ry = ry;
-  L.rz = rz;
-  L.b = b1;
-  L.alive = b1 < (float)max_depth ? alive : 0.0f;
-}
-
+template <bool MIS, bool COUNT>
 __global__ void persist_kernel(float* __restrict__ st,
-                               const int* __restrict__ slot, int R, Tables T,
-                               const float* __restrict__ cam,
-                               const float* __restrict__ bg, int sky_bg,
-                               int defocus, int width, int height, int spp,
-                               int max_depth, int persist_iters, uint32_t k0,
-                               uint32_t k1, int sample_offset) {
+                               const int* __restrict__ slot, int R,
+                               rtt::Params P, int persist_iters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   float v[N_STATE];
 #pragma unroll
   for (int k = 0; k < N_STATE; ++k) v[k] = st[(size_t)k * R + i];
-  Lane L = {v[0],  v[1],  v[2],  v[3],  v[4],  v[5],  v[6],
-            v[7],  v[8],  v[9],  v[10], v[11], v[12], v[13],
-            v[14], v[15], v[16], v[17], v[18], v[19]};
+  rtt::Lane L = {v[0],  v[1],  v[2],  v[3],  v[4],  v[5],  v[6],
+                 v[7],  v[8],  v[9],  v[10], v[11], v[12], v[13],
+                 v[14], v[15], v[16], v[17], v[18], v[19]};
   const int s = slot[i];
-  const int tiles_x = (width + BLK - 1) / BLK;
-  const int blk = s / (BLK * BLK);
-  const int within = s % (BLK * BLK);
-  const float px = (float)min((blk % tiles_x) * BLK + within % BLK, width - 1);
-  const float py =
-      (float)min((blk / tiles_x) * BLK + within / BLK, height - 1);
-  const float spp_f = (float)spp;
-
+  float px, py;
+  rtt::slot_pixel(P, s, &px, &py);
+  const float spp_f = (float)P.spp;
+  rtt::Work<COUNT> W;
   for (int it = 0; it < persist_iters; ++it) {
-    if (!(L.mid > 0.0f || L.done < spp_f)) break;
-    // 1) bank a dead unbanked path
-    const bool fin = L.mid > 0.0f && L.alive <= 0.0f;
-    L.sx = L.sx + (fin ? L.rx : 0.0f);
-    L.sy = L.sy + (fin ? L.ry : 0.0f);
-    L.sz = L.sz + (fin ? L.rz : 0.0f);
-    L.done = L.done + (fin ? 1.0f : 0.0f);
-    L.mid = fin ? 0.0f : L.mid;
-    const float finz = fin ? 0.0f : 1.0f;
-    L.rx = L.rx * finz;
-    L.ry = L.ry * finz;
-    L.rz = L.rz * finz;
-    const uint32_t sample = (uint32_t)((int)L.done + sample_offset);
-    // 2) respawn from the camera (spawn_rays, pallas_megakernel.py:1817)
-    if (L.mid <= 0.0f && L.done < spp_f) {
-      const float4 u =
-          rtt::uniforms4((uint32_t)s, sample, 0u, rtt::STREAM_CAMERA, k0, k1);
-      const float jx = px + (u.x - 0.5f);
-      const float jy = py + (u.y - 0.5f);
-      const float psx = cam[3] + jx * cam[6] + jy * cam[9];
-      const float psy = cam[4] + jx * cam[7] + jy * cam[10];
-      const float psz = cam[5] + jx * cam[8] + jy * cam[11];
-      float ox0 = cam[0], oy0 = cam[1], oz0 = cam[2];
-      if (defocus) {
-        const float dr = sqrtf(u.z);
-        const float dth = u.w * rtt::TWO_PI;
-        const float ddx = dr * cosf(dth);
-        const float ddy = dr * sinf(dth);
-        ox0 = cam[0] + ddx * cam[12] + ddy * cam[15];
-        oy0 = cam[1] + ddx * cam[13] + ddy * cam[16];
-        oz0 = cam[2] + ddx * cam[14] + ddy * cam[17];
-      }
-      L.tm = 0.0f;
-      L.ox = ox0;
-      L.oy = oy0;
-      L.oz = oz0;
-      L.dx = psx - ox0;
-      L.dy = psy - oy0;
-      L.dz = psz - oz0;
-      L.ax = 1.0f;
-      L.ay = 1.0f;
-      L.az = 1.0f;
-      L.b = 0.0f;
-      L.alive = 1.0f;
-      L.mid = 1.0f;
-    }
-    // 3) one bounce
-    if (L.alive > 0.0f) {
-      const float4 u = rtt::uniforms4((uint32_t)s, sample, (uint32_t)L.b,
-                                      rtt::STREAM_BOUNCE, k0, k1);
-      bounce(L, T, bg, sky_bg, max_depth, u);
-    }
+    if (!rtt::lane_has_work(L, spp_f)) break;
+    rtt::lane_step<MIS>(L, P, (uint32_t)s, px, py, W);
   }
-
   const float out[N_STATE] = {L.tm, L.ox,    L.oy, L.oz,   L.dx, L.dy, L.dz,
                               L.ax, L.ay,    L.az, L.rx,   L.ry, L.rz,
                               L.alive, L.b, L.done, L.sx, L.sy, L.sz, L.mid};
 #pragma unroll
   for (int k = 0; k < N_STATE; ++k) st[(size_t)k * R + i] = out[k];
+  W.flush(P);
 }
 
 }  // namespace
 
 extern "C" int rtt_persist_step(float* state, const int* slot, int R,
-                                const float* geom, const float* tab,
-                                int n_rows, const float* clb, const int* cls,
-                                int n_clusters, const float* sclb,
-                                const int* scls, int n_sclusters, int unroll,
-                                const float* cam_u, const float* bg,
-                                int sky_bg, int defocus, int width,
-                                int height, int spp, int max_depth,
-                                int persist_iters, uint32_t k0, uint32_t k1,
-                                int sample_offset, void* stream) {
+                                const rtt::Params* params, int persist_iters,
+                                int mis, void* stream) {
   if (R > 0) {
-    Tables T{reinterpret_cast<const float4*>(geom),
-             tab,
-             n_rows,
-             clb,
-             cls,
-             n_clusters,
-             sclb,
-             scls,
-             n_sclusters,
-             unroll};
     const int block = 128;
     const int grid = (R + block - 1) / block;
-    persist_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        state, slot, R, T, cam_u, bg, sky_bg, defocus, width, height, spp,
-        max_depth, persist_iters, k0, k1, sample_offset);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const bool count = params->work != nullptr;
+    if (mis && count)
+      persist_kernel<true, true><<<grid, block, 0, st>>>(state, slot, R,
+                                                         *params,
+                                                         persist_iters);
+    else if (mis)
+      persist_kernel<true, false><<<grid, block, 0, st>>>(state, slot, R,
+                                                          *params,
+                                                          persist_iters);
+    else if (count)
+      persist_kernel<false, true><<<grid, block, 0, st>>>(state, slot, R,
+                                                          *params,
+                                                          persist_iters);
+    else
+      persist_kernel<false, false><<<grid, block, 0, st>>>(state, slot, R,
+                                                           *params,
+                                                           persist_iters);
   }
   return (int)cudaGetLastError();
 }
+
+// sizeof(rtt::Params), which ops/_cuda.py checks its ctypes mirror against
+extern "C" int rtt_params_size() { return (int)sizeof(rtt::Params); }

@@ -1,4 +1,5 @@
-// Device functions shared by the port's kernels (sphere_hit.cu, persist.cu).
+// Device functions shared by the port's kernels (sphere_hit.cu, and through
+// path.cuh persist.cu and megakernel.cu).
 //
 // Every floating-point expression here is written in the evaluation order of
 // the plain PyTorch twins (ops/hit.py, ops/wavefront.py), which follow the
@@ -24,8 +25,10 @@ constexpr uint32_t PHILOX_W0 = 0x9E3779B9u;
 constexpr uint32_t PHILOX_W1 = 0xBB67AE85u;
 
 // counter stream word: which draw group of a (slot, sample, bounce)
-constexpr uint32_t STREAM_BOUNCE = 0u;
-constexpr uint32_t STREAM_CAMERA = 1u;
+constexpr uint32_t STREAM_BOUNCE = 0u;  // scatter u1, u2, dielectric, RR
+constexpr uint32_t STREAM_CAMERA = 1u;  // jitter x, y, lens r, theta
+constexpr uint32_t STREAM_MIS_A = 2u;   // NEE/MIS u5-u8
+constexpr uint32_t STREAM_MIS_B = 3u;   // NEE/MIS u9, u10 (two unused)
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
@@ -80,6 +83,40 @@ __device__ __forceinline__ float sphere_root(float cx, float cy, float cz,
   const float root = (tn > T_MIN && tn < T_MAX) ? tn : tf;
   *ok = (disc > 0.0f) && (root > T_MIN) && (root < T_MAX);
   return root;
+}
+
+// ---- quad (pallas_megakernel.py:883-916 qbody, quad.rs:59-88) ----
+// quad table columns (pallas_megakernel.py Q_*; ops/hit.py pack_quad_table)
+constexpr int Q_QX = 0, Q_UX = 3, Q_VX = 6, Q_NX = 9, Q_DP = 12, Q_WX = 13,
+              Q_KIND = 16, Q_AR = 17, Q_FUZZ = 20, Q_IOR = 21;
+constexpr int Q_COLS = 32;
+
+// Plane hit and planar-coordinate interior test of one quad row q: returns
+// the plane's t; *ok says whether it is a valid hit in (T_MIN, T_MAX)
+// inside the quad.  A zero normal (masked quad) is rejected by |denom|.
+__device__ __forceinline__ float quad_hit(const float* q, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, bool* ok) {
+  const float nqx = q[Q_NX], nqy = q[Q_NX + 1], nqz = q[Q_NX + 2];
+  const float denom = dx * nqx + dy * nqy + dz * nqz;
+  const float safe = fabsf(denom) < 1e-8f ? 1.0f : denom;
+  const float tq = (q[Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe;
+  const float relx = ox + tq * dx - q[Q_QX];
+  const float rely = oy + tq * dy - q[Q_QX + 1];
+  const float relz = oz + tq * dz - q[Q_QX + 2];
+  const float ux = q[Q_UX], uy = q[Q_UX + 1], uz = q[Q_UX + 2];
+  const float vx = q[Q_VX], vy = q[Q_VX + 1], vz = q[Q_VX + 2];
+  const float wx = q[Q_WX], wy = q[Q_WX + 1], wz = q[Q_WX + 2];
+  // alpha = w . (rel x v); beta = w . (u x rel)
+  const float alpha = wx * (rely * vz - relz * vy) +
+                      wy * (relz * vx - relx * vz) +
+                      wz * (relx * vy - rely * vx);
+  const float beta = wx * (uy * relz - uz * rely) +
+                     wy * (uz * relx - ux * relz) +
+                     wz * (ux * rely - uy * relx);
+  *ok = fabsf(denom) >= 1e-8f && tq > T_MIN && tq < T_MAX && alpha >= 0.0f &&
+        alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f;
+  return tq;
 }
 
 }  // namespace rtt

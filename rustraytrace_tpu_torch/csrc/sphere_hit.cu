@@ -11,16 +11,13 @@
 // same address (an L1 broadcast), so the loop is bound by its ~25 FP32
 // operations per sphere per ray.  The design does nothing more about that
 // yet (no shared-memory staging, no warp-level culling): this kernel is the
-// exact check of the shared quadric in rtt_common.cuh.
+// exact check of the shared sphere quadric and quad test in rtt_common.cuh.
 #include "rtt_common.cuh"
 
 namespace {
 
-// sphere table columns (pallas_hit.py S_*) and quad table columns
-// (pallas_megakernel.py Q_*)
+// sphere table columns (pallas_hit.py S_*)
 constexpr int S_COLS = 8;
-constexpr int Q_QX = 0, Q_UX = 3, Q_VX = 6, Q_NX = 9, Q_DP = 12, Q_WX = 13;
-constexpr int Q_COLS = 32;
 
 __global__ void sphere_hit_kernel(const float* __restrict__ o,
                                   const float* __restrict__ d,
@@ -58,27 +55,10 @@ __global__ void sphere_hit_kernel(const float* __restrict__ o,
   }
   // quads: plane hit + planar-coordinate interior test (quad.rs:59-88)
   for (int qi = 0; qi < n_quad; ++qi) {
-    const float* q = quad + qi * Q_COLS;
-    const float nqx = q[Q_NX], nqy = q[Q_NX + 1], nqz = q[Q_NX + 2];
-    const float denom = dx * nqx + dy * nqy + dz * nqz;
-    const float safe = fabsf(denom) < 1e-8f ? 1.0f : denom;
-    const float tq = (q[Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe;
-    const float relx = ox + tq * dx - q[Q_QX];
-    const float rely = oy + tq * dy - q[Q_QX + 1];
-    const float relz = oz + tq * dz - q[Q_QX + 2];
-    const float ux = q[Q_UX], uy = q[Q_UX + 1], uz = q[Q_UX + 2];
-    const float vx = q[Q_VX], vy = q[Q_VX + 1], vz = q[Q_VX + 2];
-    const float wx = q[Q_WX], wy = q[Q_WX + 1], wz = q[Q_WX + 2];
-    const float alpha = wx * (rely * vz - relz * vy) +
-                        wy * (relz * vx - relx * vz) +
-                        wz * (relx * vy - rely * vx);
-    const float beta = wx * (uy * relz - uz * rely) +
-                       wy * (uz * relx - ux * relz) +
-                       wz * (ux * rely - uy * relx);
-    const bool take = fabsf(denom) >= 1e-8f && tq > rtt::T_MIN &&
-                      tq < rtt::T_MAX && alpha >= 0.0f && alpha <= 1.0f &&
-                      beta >= 0.0f && beta <= 1.0f && tq < best_t;
-    if (take) {
+    bool ok;
+    const float tq =
+        rtt::quad_hit(quad + qi * rtt::Q_COLS, ox, oy, oz, dx, dy, dz, &ok);
+    if (ok && tq < best_t) {
       best_t = tq;
       best_i = n_sph + qi;
     }

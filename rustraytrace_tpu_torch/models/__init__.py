@@ -5,6 +5,9 @@ from .scenes import (
     SCENES,
     book1_random_spheres,
     book1_three_spheres,
+    book2_cornell_box,
+    book2_quads,
+    book3_cornell_box,
     get_scene,
 )
 
@@ -13,5 +16,8 @@ __all__ = [
     "SCENES",
     "book1_random_spheres",
     "book1_three_spheres",
+    "book2_cornell_box",
+    "book2_quads",
+    "book3_cornell_box",
     "get_scene",
 ]

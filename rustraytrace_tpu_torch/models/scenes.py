@@ -1,9 +1,11 @@
 """Scene catalog (counterpart: ``rustraytrace_tpu/models/scenes.py``).
 
-The two Book-1 scenes are ported with the JAX package's constants, seed
-(0x5EED_1234, the reference's GPU scene seed) and draw order, so they build
-bit-equal scenes.  The other reference scenes are listed by name and raise
-``NotImplementedError`` until their feature slices are ported.
+The two Book-1 scenes, the Book-2 quad scenes (``book2_quads``,
+``book2_cornell_box``) and the Book-3 Cornell box are ported with the JAX
+package's constants, seed (0x5EED_1234, the reference's GPU scene seed) and
+draw order, so they build bit-equal scenes.  The other reference scenes are
+listed by name and raise ``NotImplementedError`` until their feature slices
+are ported.
 
 Each builder returns ``(scene, cfg, integrator)``.
 """
@@ -86,7 +88,7 @@ def _random_sphere_field(b: SceneBuilder, rng: np.random.Generator,
 
 def book1_random_spheres(overrides: Optional[dict] = None,
                          seed: int = _SCENE_SEED, device=None):
-    """Book-1 final scene (489 spheres); in_one_weekend/mod.rs:57-126."""
+    """Book-1 final scene (487 spheres); in_one_weekend/mod.rs:57-126."""
     b = SceneBuilder()
     _random_sphere_field(b, np.random.default_rng(seed), moving=False,
                          checker_ground=False)
@@ -98,20 +100,108 @@ def book1_random_spheres(overrides: Optional[dict] = None,
     return _finish(b, cfg, "path", overrides, device)
 
 
+def book2_quads(overrides: Optional[dict] = None, device=None):
+    """Scene 5 (the_next_week/mod.rs:256-313): five colored quads."""
+    b = SceneBuilder()
+    b.add_quad((-3, -2, 5), (0, 0, -4), (0, 4, 0), b.lambertian((1.0, 0.2, 0.2)))
+    b.add_quad((-2, -2, 0), (4, 0, 0), (0, 4, 0), b.lambertian((0.2, 1.0, 0.2)))
+    b.add_quad((3, -2, 1), (0, 0, 4), (0, 4, 0), b.lambertian((0.2, 0.2, 1.0)))
+    b.add_quad((-2, 3, 1), (4, 0, 0), (0, 0, 4), b.lambertian((1.0, 0.5, 0.0)))
+    b.add_quad((-2, -3, 5), (4, 0, 0), (0, 0, -4), b.lambertian((0.2, 0.8, 0.8)))
+    cfg = RenderConfig(
+        aspect_ratio=1.0, image_width=400, samples_per_pixel=100,
+        max_depth=50, background=(0.70, 0.80, 1.00), vfov=80.0,
+        lookfrom=(0.0, 0.0, 9.0), lookat=(0.0, 0.0, 0.0),
+    )
+    return _finish(b, cfg, "path", overrides, device)
+
+
+def _cornell_walls(b: SceneBuilder, light_scale: float, light_geom: str):
+    """Shared Cornell box walls (the_next_week/mod.rs:358-430 layout)."""
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light((light_scale,) * 3)
+
+    b.add_quad((555, 0, 0), (0, 555, 0), (0, 0, 555), green)
+    b.add_quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red)
+    if light_geom == "small":
+        b.add_quad((343, 554, 332), (-130, 0, 0), (0, 0, -105), light)
+    else:
+        b.add_quad((113, 554, 127), (330, 0, 0), (0, 0, 305), light)
+    b.add_quad((0, 0, 0), (555, 0, 0), (0, 0, 555), white)
+    b.add_quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), white)
+    b.add_quad((0, 0, 555), (555, 0, 0), (0, 555, 0), white)
+    return white
+
+
+def book2_cornell_box(overrides: Optional[dict] = None, device=None):
+    """Scene 7 (the_next_week/mod.rs:358-430): 6 walls and 2 rotated
+    boxes, baked into 18 quads."""
+    b = SceneBuilder()
+    white = _cornell_walls(b, 15.0, "small")
+    b.add_box((0, 0, 0), (165, 330, 165), white, rotate_y_deg=15.0,
+              translate=(265, 0, 295))
+    b.add_box((0, 0, 0), (165, 165, 165), white, rotate_y_deg=-18.0,
+              translate=(130, 0, 65))
+    cfg = RenderConfig(
+        aspect_ratio=1.0, image_width=600, samples_per_pixel=200,
+        max_depth=50, background=(0.0, 0.0, 0.0), vfov=40.0,
+        lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0),
+    )
+    return _finish(b, cfg, "path", overrides, device)
+
+
+def book3_cornell_box(overrides: Optional[dict] = None, device=None):
+    """Cornell box + glass sphere with the NEE light list
+    (the_rest_of_your_life/mod.rs:69-161): 12 quads (5 walls, the light
+    and a rotated box), 1 sphere, 2 NEE lights; MIS, stratified."""
+    b = SceneBuilder()
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light((15.0, 15.0, 15.0))
+
+    b.add_quad((555, 0, 0), (0, 0, 555), (0, 555, 0), green)
+    b.add_quad((0, 0, 555), (0, 0, -555), (0, 555, 0), red)
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555), white)
+    b.add_quad((0, 0, 555), (555, 0, 0), (0, 0, -555), white)
+    b.add_quad((555, 0, 555), (-555, 0, 0), (0, 555, 0), white)
+    b.add_quad((213, 554, 227), (130, 0, 0), (0, 0, 105), light)
+
+    b.add_box((0, 0, 0), (165, 330, 165), white, rotate_y_deg=15.0,
+              translate=(265, 0, 295))
+    b.add_sphere((190, 90, 190), 90.0, b.dielectric(1.5))
+
+    # NEE targets (EmptyMaterial geometry; mod.rs:128-140)
+    b.add_light_quad((343, 554, 332), (-130, 0, 0), (0, 0, -105))
+    b.add_light_sphere((190, 90, 190), 90.0)
+
+    cfg = RenderConfig(
+        aspect_ratio=1.0, image_width=600, samples_per_pixel=100,
+        max_depth=50, background=(0.0, 0.0, 0.0), vfov=40.0,
+        lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0),
+        stratified=True,
+    )
+    return _finish(b, cfg, "mis", overrides, device)
+
+
 SCENES: Dict[str, Callable] = {
     "book1_three_spheres": book1_three_spheres,
     "book1_random_spheres": book1_random_spheres,
     "in_one_weekend": book1_random_spheres,
+    "book2_quads": book2_quads,
+    "book2_cornell_box": book2_cornell_box,
+    "book3_cornell_box": book3_cornell_box,
+    "the_rest_of_your_life": book3_cornell_box,
 }
 
-# reference scenes whose feature slices (motion, checker, quads, boxes,
-# media, Perlin, image textures, MIS) are not ported yet
+# reference scenes whose feature slices (motion, checker, boxes, media,
+# Perlin, image textures) are not ported yet
 NOT_PORTED = (
     "book2_bouncing_spheres", "book2_checkered_spheres", "book2_earth",
-    "book2_perlin_spheres", "book2_quads", "book2_simple_light",
-    "book2_cornell_box", "book2_cornell_smoke", "book2_final_scene",
-    "book3_cornell_box", "the_rest_of_your_life", "sphere_field_10k",
-    "the_next_week",
+    "book2_perlin_spheres", "book2_simple_light", "book2_cornell_smoke",
+    "book2_final_scene", "sphere_field_10k", "the_next_week",
 )
 
 

@@ -1,13 +1,16 @@
 """Build and binding layer for the port's CUDA kernels (no JAX
 counterpart: Pallas kernels are compiled by ``pallas_call`` itself).
 
-At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface under ``build/rtt_torch/``
-(named by a hash of the sources and flags, so an edited source rebuilds),
-and loaded with ``ctypes``.  Pointer and stream arguments are ``c_void_p``.
-Every C entry point returns ``cudaGetLastError()`` after its launch, and
-``launch`` raises when that is not ``cudaSuccess``.  A failed build raises
-too: nothing falls back to a plain version.
+At first use, every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
+for ``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface under ``build/rtt_torch/`` (named by
+a hash of the sources and flags, so an edited source rebuilds), loaded with
+``ctypes``.  Pointer and stream arguments are ``c_void_p``; the path
+tracer's kernels take a pointer to a ``PathParams`` struct, whose layout is
+checked against the C ``sizeof`` at load.  Every C entry point returns
+``cudaGetLastError()`` after its launch, and ``launch`` raises when that is
+not ``cudaSuccess``.  A failed build raises too: nothing falls back to a
+plain version.
 
 Each kernel keeps a plain integer count of its launches, raised by
 ``launch`` after a successful launch and nowhere else, so a run can show
@@ -32,12 +35,29 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rtt_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # no contracted multiply-adds: the kernels round exactly as
               # their plain PyTorch twins do (see csrc/rtt_common.cuh)
               "-fmad=false", "--ptxas-options=-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+
+
+class PathParams(ctypes.Structure):
+    """Mirror of ``rtt::Params`` (csrc/path.cuh): the tables and uniforms
+    that the persist kernel and the respawn megakernel read."""
+
+    _fields_ = [
+        ("geom", _P), ("tab", _P), ("n_rows", _I),
+        ("clb", _P), ("cls", _P), ("n_clusters", _I),
+        ("sclb", _P), ("scls", _P), ("n_sclusters", _I), ("unroll", _I),
+        ("qtab", _P), ("n_quads", _I), ("ltab", _P), ("n_lights", _I),
+        ("cam", _P), ("bg", _P),
+        ("sky_bg", _I), ("defocus", _I), ("width", _I), ("height", _I),
+        ("spp", _I), ("max_depth", _I), ("stratified", _I),
+        ("sqrt_spp", _I), ("k0", _U), ("k1", _U), ("sample_offset", _I),
+        ("work", _P),
+    ]
 
 
 @dataclasses.dataclass
@@ -50,14 +70,10 @@ class Kernel:
 KERNELS = {
     "sphere_hit": Kernel("rtt_sphere_hit", (
         _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P)),
-    "persist": Kernel("rtt_persist_step", (
-        _P, _P, _I,  # state, slot, R
-        _P, _P, _I,  # geom, tab, n_rows
-        _P, _P, _I, _P, _P, _I, _I,  # clb, cls, n_cl, sclb, scls, n_scl, U
-        _P, _P, _I, _I,  # cam_u, bg, sky_bg, defocus
-        _I, _I, _I, _I, _I,  # width, height, spp, max_depth, persist_iters
-        _U, _U, _I,  # key0, key1, sample_offset
-        _P)),  # stream
+    # state, slot, R, &PathParams, persist_iters, mis, stream
+    "persist": Kernel("rtt_persist_step", (_P, _P, _I, _P, _I, _I, _P)),
+    # out, R, &PathParams, mis, stream
+    "megakernel": Kernel("rtt_respawn_pass", (_P, _I, _P, _I, _P)),
 }
 
 _lock = threading.Lock()
@@ -86,16 +102,42 @@ def _build() -> str:
         build_info.update(path=out, seconds=0.0, log="(cached)")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    # one nvcc per source, all at once: the build is as long as the
+    # slowest file, not the sum
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            log, _ = proc.communicate(timeout=900)
+            logs.append(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = f"{out}.{os.getpid()}.tmp"
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+    res = subprocess.run(link, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                           f"{' '.join(link)}\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out)
     build_info.update(path=out, seconds=time.perf_counter() - t0,
-                      log=res.stdout + res.stderr)
+                      log="".join(logs) + res.stdout + res.stderr)
     return out
 
 
@@ -111,6 +153,12 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = list(k.argtypes)
             lib.rtt_error_string.restype = ctypes.c_char_p
             lib.rtt_error_string.argtypes = [ctypes.c_int]
+            lib.rtt_params_size.restype = ctypes.c_int
+            lib.rtt_params_size.argtypes = []
+            if lib.rtt_params_size() != ctypes.sizeof(PathParams):
+                raise RuntimeError(
+                    f"PathParams is {ctypes.sizeof(PathParams)} bytes, the "
+                    f"C struct {lib.rtt_params_size()}: layouts differ")
             _lib = lib
         return _lib
 

@@ -7,8 +7,9 @@ semantics of the JAX kernel (pallas_hit.py:68-159): the half-b quadric with
 ``oc`` subtracted first, the near root unless it is outside (1e-3, 1e9),
 optional motion ``c + time * v``, then quads, with a strict ``<`` in table
 order; quad winners are encoded as ``n_spheres + qi`` and a miss returns
-``(T_MAX, -1)``.  K1 is off the flagship path; it is the exact check of the
-quadric that the persist kernel shares (``csrc/rtt_common.cuh``).
+``(T_MAX, -1)``.  K1 is off the main paths; it is the exact check of the
+sphere quadric and the quad test that the path tracer's kernels share
+(``csrc/rtt_common.cuh``; ``quad_hits`` is the plain twin of the quad test).
 """
 
 from __future__ import annotations
@@ -92,6 +93,34 @@ def pack_quad_table(scene: Scene) -> torch.Tensor:
     return tab
 
 
+def quad_hits(quad_tab: torch.Tensor, ox, oy, oz, dx, dy, dz):
+    """(t [n, Q], valid [n, Q]) of rays against every quad row: plane hit
+    and planar-coordinate interior test (quad.rs:59-88; qbody,
+    pallas_megakernel.py:883-916; csrc/rtt_common.cuh ``quad_hit``).  Ray
+    components are [n, 1] columns; a zero normal (masked quad) is
+    rejected by ``|denom|``."""
+    q = quad_tab[None]
+    nqx, nqy, nqz = q[..., Q_NX], q[..., Q_NY], q[..., Q_NZ]
+    denom = dx * nqx + dy * nqy + dz * nqz
+    safe = torch.where(torch.abs(denom) < 1e-8, 1.0, denom)
+    tq = (q[..., Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe
+    relx = ox + tq * dx - q[..., Q_QX]
+    rely = oy + tq * dy - q[..., Q_QY]
+    relz = oz + tq * dz - q[..., Q_QZ]
+    ux, uy, uz = q[..., Q_UX], q[..., Q_UY], q[..., Q_UZ]
+    vx, vy, vz = q[..., Q_VX], q[..., Q_VY], q[..., Q_VZ]
+    wx, wy, wz = q[..., Q_WX], q[..., Q_WY], q[..., Q_WZ]
+    alpha = (wx * (rely * vz - relz * vy)
+             + wy * (relz * vx - relx * vz)
+             + wz * (relx * vy - rely * vx))
+    beta = (wx * (uy * relz - uz * rely)
+            + wy * (uz * relx - ux * relz)
+            + wz * (ux * rely - uy * relx))
+    ok = ((torch.abs(denom) >= 1e-8) & (tq > T_MIN) & (tq < T_MAX)
+          & (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0))
+    return tq, ok
+
+
 def sphere_hit_plain(o, d, time, sph_tab, quad_tab, moving: bool,
                      chunk: int = 8192):
     """Vectorised twin of the K1 kernel: all spheres and quads of a chunk of
@@ -127,26 +156,7 @@ def sphere_hit_plain(o, d, time, sph_tab, quad_tab, moving: bool,
         best_t, best_i = torch.min(torch.where(ok, root, _BIG), dim=1)
         best_i = torch.where(best_t < _BIG, best_i, -1)
         if quad_tab.shape[0]:
-            q = quad_tab[None]
-            nqx, nqy, nqz = q[..., Q_NX], q[..., Q_NY], q[..., Q_NZ]
-            denom = dx * nqx + dy * nqy + dz * nqz
-            safe = torch.where(torch.abs(denom) < 1e-8, 1.0, denom)
-            tq = (q[..., Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe
-            relx = ox + tq * dx - q[..., Q_QX]
-            rely = oy + tq * dy - q[..., Q_QY]
-            relz = oz + tq * dz - q[..., Q_QZ]
-            ux, uy, uz = q[..., Q_UX], q[..., Q_UY], q[..., Q_UZ]
-            vx, vy, vz = q[..., Q_VX], q[..., Q_VY], q[..., Q_VZ]
-            wx, wy, wz = q[..., Q_WX], q[..., Q_WY], q[..., Q_WZ]
-            alpha = (wx * (rely * vz - relz * vy)
-                     + wy * (relz * vx - relx * vz)
-                     + wz * (relx * vy - rely * vx))
-            beta = (wx * (uy * relz - uz * rely)
-                    + wy * (uz * relx - ux * relz)
-                    + wz * (ux * rely - uy * relx))
-            okq = ((torch.abs(denom) >= 1e-8) & (tq > T_MIN) & (tq < T_MAX)
-                   & (alpha >= 0.0) & (alpha <= 1.0)
-                   & (beta >= 0.0) & (beta <= 1.0))
+            tq, okq = quad_hits(quad_tab, ox, oy, oz, dx, dy, dz)
             qt, qi = torch.min(torch.where(okq, tq, _BIG), dim=1)
             take = qt < best_t
             best_t = torch.where(take, qt, best_t)

@@ -27,6 +27,8 @@ _M32 = 0xFFFFFFFF
 # stream word of the counter: which draw group of a (slot, sample, bounce)
 STREAM_BOUNCE = 0  # 4 uniforms of one bounce (scatter u1, u2, dielectric, RR)
 STREAM_CAMERA = 1  # 4 uniforms of a camera ray (jitter x, y, lens r, theta)
+STREAM_MIS_A = 2  # NEE/MIS u5-u8 (material direction, light sample)
+STREAM_MIS_B = 3  # NEE/MIS u9, u10 (light pick, mixture choice), 2 unused
 
 
 def _mulhilo(m: int, x: torch.Tensor):

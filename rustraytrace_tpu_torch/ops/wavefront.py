@@ -1,14 +1,20 @@
-"""The persist path tracer's launch loop and K2 sub-slice (a) (counterpart:
-``rustraytrace_tpu/ops/pallas_wavefront.py``, non-image branch, and the
-persist branch of ``_make_kernel`` in ``pallas_megakernel.py:1856-1991``).
+"""The persist path tracer's launch loop, K2 and the plain twin of the
+shading that K2 and K3 share (counterparts:
+``rustraytrace_tpu/ops/pallas_wavefront.py``, non-image branch, and
+``_make_kernel`` in ``pallas_megakernel.py``: intersect :883-1200,
+bounce_body :1202-1771, spawn_rays :1817, the persist branch :1856-1991).
+
+``render_pass_wavefront`` routes as the JAX package does: scenes on
+``sorted_persist_route`` (>= 256 primitives, at most 2 Mi slot lanes) run
+the persist launch loop below; every other scene goes to the respawn
+megakernel K3 (``ops/megakernel.py``).
 
 A pass keeps one lane per pixel slot (32x32 screen-block swizzle).  Each
 launch of ``persist_step`` advances every lane through up to
 ``persist_iters`` iterations of: bank a finished path, respawn the lane's
 next camera ray, one bounce.  Between launches the loop re-sorts the lanes
-by a Morton code of their ray origin and direction octant (scenes with
->= 256 primitives), and at the end it scatters the banked sums back to slot
-order and unswizzles them to pixels.
+by a Morton code of their ray origin and direction octant, and at the end it
+scatters the banked sums back to slot order and unswizzles them to pixels.
 
 Lane state: a float32 ``[20, R]`` tensor with the JAX layout's rows — 0 time,
 1-3 origin, 4-6 direction, 7-9 attenuation, 10-12 radiance, 13 alive,
@@ -18,30 +24,41 @@ through the sort).  ``persist_step`` updates the state in place.
 
 Every draw comes from Philox keyed by (slot, absolute sample index, bounce,
 stream) — never by launch — so a lane's path does not depend on which
-launch or sorted position runs it: renders are bitwise invariant to the
-sort and to ``persist_iters``.
+launch, sorted position or kernel runs it: renders are bitwise invariant to
+the sort and to ``persist_iters``, and K3 equals the unsorted loop.
 
-Intersection: the CUDA kernel culls with the two-level SAH cluster
-hierarchy per thread (a conservative slab test against the thread's own
-best t); ``persist_step_plain`` scans every row of the cluster-ordered table.
-Both take the first strict minimum in table order, so they pick the same
-winner.
+Intersection: the CUDA kernels cull spheres with the two-level SAH cluster
+hierarchy per thread (a slab test against the thread's own best t), and the
+plain twin runs the same cull, vectorised over lanes.  Both take the first
+strict minimum in table order, spheres before quads, so they pick the same
+winner.  The cull is not exactly a full scan: see ``_sphere_hits_plain``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ..scene import DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, METAL, Scene
+from ..scene import (DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, LIGHT_QUAD, METAL,
+                     Scene)
 from . import _cuda
-from .hit import _BIG, T_MAX, T_MIN
-from .megakernel import (TILE_LANES, Prepared, _BLK, _unswizzle_index,
-                         active_primitive_count, megakernel_eligible,
-                         prepare_megakernel_cached, respawn_tile_rows)
-from .rng import STREAM_BOUNCE, STREAM_CAMERA, seed_key, uniforms4
+from .hit import (_BIG, Q_AB, Q_AG, Q_AR, Q_FUZZ, Q_IOR, Q_KIND, Q_NX, Q_NY,
+                  Q_NZ, T_MAX, T_MIN, quad_hits)
+from .megakernel import (L_AREA, L_CX, L_CY, L_CZ, L_DP, L_KIND, L_NX, L_NY,
+                         L_NZ, L_QX, L_QY, L_QZ, L_RAD, L_UX, L_UY, L_UZ,
+                         L_VX, L_VY, L_VZ, L_WX, L_WY, L_WZ, TILE_LANES,
+                         Prepared, _BLK, active_primitive_count,
+                         check_tables, path_params,
+                         prepare_megakernel_cached, render_pass_megakernel,
+                         respawn_pass, respawn_tile_rows,
+                         unswizzle_index_on)
+from .rng import (STREAM_BOUNCE, STREAM_CAMERA, STREAM_MIS_A, STREAM_MIS_B,
+                  seed_key, uniforms4)
 
 _TWO_PI = 6.283185307179586
+_INV_PI = 0.3183098861837907
 RR_START_BOUNCE = 5
 RR_P_MIN = 0.05
 RR_P_MAX = 0.95
@@ -50,7 +67,7 @@ N_STATE = 20
 # state rows read by the launch loop and the sort
 R_OX, R_DX, R_DONE, R_SX, R_MID = 1, 4, 15, 16, 19
 
-# rays x table rows per chunk of the plain intersector's brute-force scan
+# rays x table rows per chunk of the plain intersector's row scans
 _PLAIN_CHUNK_ELEMS = 1 << 22
 
 
@@ -163,12 +180,25 @@ def _slot_xy(slot, width: int, height: int):
 
 
 def spawn_rays(cam_u: torch.Tensor, px, py, u1, u2, u3, u4,
-               defocus: bool):
+               defocus: bool, sample=None, sqrt_spp: int = 0):
     """Camera rays from pixel coordinates and four uniforms per lane
     (spawn_rays, pallas_megakernel.py:1817; Camera::get_ray,
-    camera.rs:152-180).  Returns (origin [3], direction [3]) row lists."""
-    jx = px + (u1 - 0.5)
-    jy = py + (u2 - 0.5)
+    camera.rs:152-180).  With ``sqrt_spp`` > 0 the jitter is stratified by
+    the absolute sample index ``sample`` (int64): its stratum is taken in
+    integers, ``s % n^2`` and then ``% n`` and ``// n``, as the JAX
+    package's XLA ``_strat_tuple`` does; its Pallas kernel takes it in f32
+    with ``floor(s * (1 / n^2))``.  Returns (origin [3], direction [3]) row
+    lists."""
+    if sqrt_spp > 0:
+        s_w = sample % (sqrt_spp * sqrt_spp)
+        s_i = (s_w % sqrt_spp).to(torch.float32)
+        s_j = (s_w // sqrt_spp).to(torch.float32)
+        recip = _recip(sqrt_spp)
+        jx = px + ((s_i + u1) * recip - 0.5)
+        jy = py + ((s_j + u2) * recip - 0.5)
+    else:
+        jx = px + (u1 - 0.5)
+        jy = py + (u2 - 0.5)
     ps = [cam_u[3 + k] + jx * cam_u[6 + k] + jy * cam_u[9 + k]
           for k in range(3)]
     if defocus:
@@ -183,15 +213,21 @@ def spawn_rays(cam_u: torch.Tensor, px, py, u1, u2, u3, u4,
     return o, [ps[k] - o[k] for k in range(3)]
 
 
-def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
-    """(best t [n], winner row [n]) by a scan of every table row — the
-    result the kernel's conservative per-thread cluster cull reaches."""
+def _recip(n: int) -> float:
+    """1/n rounded once to float32, as the kernel's ``1.0f / (float)n``."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+def _sphere_rows_min(geom: torch.Tensor, ox, oy, oz, dx, dy, dz, a, inv_a):
+    """(least valid root [n], first row at it [n]) of rays against the
+    sphere rows ``geom`` [M, 4]: the sequential strict-``<`` scan of
+    csrc/path.cuh ``scan_spheres``.  ``_BIG`` where no row is hit."""
     n = ox.shape[0]
-    N = prep.geom.shape[0]
-    cx, cy, cz, r2 = (prep.geom[None, :, k] for k in range(4))
+    M = geom.shape[0]
+    cx, cy, cz, r2 = (geom[None, :, k] for k in range(4))
     bt = torch.empty_like(ox)
     bi = torch.empty(n, dtype=torch.int64, device=ox.device)
-    step = max(1, _PLAIN_CHUNK_ELEMS // max(N, 1))
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(M, 1))
     for lo in range(0, n, step):
         s = slice(lo, min(n, lo + step))
         ocx = cx - ox[s, None]
@@ -209,10 +245,187 @@ def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
     return bt, bi
 
 
-def _bounce_plain(prep: Prepared, v: dict, u, max_depth: int) -> None:
-    """One bounce of live lanes (bounce_body, pallas_megakernel.py:1202-1559,
-    path integrator, spheres + solid albedo), updating ``v`` in place.
-    Expression order matches csrc/persist.cu, which is built without
+def _safe_inv(d):
+    """1 / d with |d| raised to 1e-20 (csrc/path.cuh ``safe_inv``)."""
+    sg = torch.where(d < 0.0, -1e-20, 1e-20)
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, sg, d)
+
+
+def _box_hit(b, ox, oy, oz, ivx, ivy, ivz, bt):
+    """Slab test of the box b = (lo3, hi3) against rays, entry before ``bt``
+    (csrc/path.cuh ``box_hit``; pallas_megakernel.py:797)."""
+    tx1, tx2 = (b[0] - ox) * ivx, (b[3] - ox) * ivx
+    ty1, ty2 = (b[1] - oy) * ivy, (b[4] - oy) * ivy
+    tz1, tz2 = (b[2] - oz) * ivz, (b[5] - oz) * ivz
+    mn, mx = torch.minimum, torch.maximum
+    t1 = mx(mx(mn(tx1, tx2), mn(ty1, ty2)), mn(tz1, tz2))
+    t2 = mn(mn(mx(tx1, tx2), mx(ty1, ty2)), mx(tz1, tz2))
+    return (t1 <= t2) & (t2 > T_MIN) & (t1 < bt)
+
+
+def _sphere_hits_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
+    """(best t [n], sphere winner row [n]) through the kernels' per-thread
+    cull: super-cluster and cluster boxes in table order, each slab-tested
+    against the ray's best t so far, then the rows of each cluster it
+    enters.  The cull is what the kernels compute, not a brute-force scan:
+    where an f32 root lies past its cluster's box (a ray leaving the
+    r = 1000 ground sphere just under its surface, whose root carries the
+    rounding of |oc|^2 - r^2), the box test drops the hit in both."""
+    if prep.n_clusters == 0:
+        return _sphere_rows_min(prep.geom, ox, oy, oz, dx, dy, dz, a, inv_a)
+    n = ox.shape[0]
+    bt = torch.full_like(ox, _BIG)
+    bi = torch.zeros(n, dtype=torch.int64, device=ox.device)
+    iv = [_safe_inv(x) for x in (dx, dy, dz)]
+    clb = prep.clb.tolist()
+    starts = [int(v) * prep.unroll for v in prep.cls.tolist()]
+    if prep.n_sclusters > 1:
+        sclb, scls = prep.sclb.tolist(), prep.scls.tolist()
+        groups = [(sclb[g], range(scls[g], scls[g + 1]))
+                  for g in range(prep.n_sclusters)]
+    else:
+        groups = [(None, range(prep.n_clusters))]
+    for sbox, clusters in groups:
+        enter = (torch.ones_like(ox, dtype=torch.bool) if sbox is None
+                 else _box_hit(sbox, ox, oy, oz, *iv, bt))
+        for c in clusters:
+            sel = (enter & _box_hit(clb[c], ox, oy, oz, *iv, bt)
+                   ).nonzero().squeeze(1)
+            if sel.numel() == 0:
+                continue
+            t, i = _sphere_rows_min(
+                prep.geom[starts[c]:starts[c + 1]],
+                *(x[sel] for x in (ox, oy, oz, dx, dy, dz, a, inv_a)))
+            take = t < bt[sel]
+            bt[sel] = torch.where(take, t, bt[sel])
+            bi[sel] = torch.where(take, i + starts[c], bi[sel])
+    return bt, bi
+
+
+def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
+    """(best t [n], sphere winner row [n], quad winner row [n] or -1):
+    spheres through the kernels' cluster cull, then every quad.  A quad
+    wins only with a strictly smaller t, so a sphere wins a tie."""
+    bt, bi = _sphere_hits_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a)
+    qi = torch.full_like(bi, -1)
+    if prep.n_quads:
+        tq, okq = quad_hits(prep.qtab[:prep.n_quads], *(
+            x[:, None] for x in (ox, oy, oz, dx, dy, dz)))
+        qt, qbest = torch.min(torch.where(okq, tq, _BIG), dim=1)
+        take = qt < bt
+        bt = torch.where(take, qt, bt)
+        qi = torch.where(take, qbest, qi)
+    return bt, bi, qi
+
+
+def _onb(wx, wy, wz):
+    """Orthonormal (u, v) around unit w (csrc/path.cuh onb;
+    pallas_megakernel.py:1590-1606)."""
+    big = torch.abs(wx) > 0.9
+    hx = torch.where(big, 0.0, 1.0)
+    hy = torch.where(big, 1.0, 0.0)
+    cx = -wz * hy
+    cy = wz * hx
+    cz = wx * hy - wy * hx
+    inv = 1.0 / torch.sqrt(torch.clamp(cx * cx + cy * cy + cz * cz,
+                                       min=1e-30))
+    vx, vy, vz = cx * inv, cy * inv, cz * inv
+    return (wy * vz - wz * vy, wz * vx - wx * vz, wx * vy - wy * vx,
+            vx, vy, vz)
+
+
+def _light_samples(prep: Prepared, px_, py_, pz_, u7, u8):
+    """Per-light sampled directions (HittableList::random,
+    hittable_list.rs:71-75): quad points q + u7 u + u8 v - p, and uniform
+    directions in the cone a sphere light subtends (sphere.rs:55-65)."""
+    out = []
+    for lt, kind in zip(prep.ltab, _light_kinds(prep)):
+        if kind == LIGHT_QUAD:
+            out.append((lt[L_QX] + u7 * lt[L_UX] + u8 * lt[L_VX] - px_,
+                        lt[L_QY] + u7 * lt[L_UY] + u8 * lt[L_VY] - py_,
+                        lt[L_QZ] + u7 * lt[L_UZ] + u8 * lt[L_VZ] - pz_))
+            continue
+        tcx = lt[L_CX] - px_
+        tcy = lt[L_CY] - py_
+        tcz = lt[L_CZ] - pz_
+        d2 = torch.clamp(tcx * tcx + tcy * tcy + tcz * tcz, min=1e-30)
+        rl = lt[L_RAD]
+        cmax = torch.sqrt(torch.clamp(1.0 - rl * rl / d2, min=0.0))
+        zc = 1.0 + u8 * (cmax - 1.0)
+        phl = _TWO_PI * u7
+        sc = torch.sqrt(torch.clamp(1.0 - zc * zc, min=0.0))
+        idl = 1.0 / torch.sqrt(d2)
+        w2x, w2y, w2z = tcx * idl, tcy * idl, tcz * idl
+        sux, suy, suz, svx, svy, svz = _onb(w2x, w2y, w2z)
+        csl = torch.cos(phl) * sc
+        snl = torch.sin(phl) * sc
+        out.append((csl * sux + snl * svx + zc * w2x,
+                    csl * suy + snl * svy + zc * w2y,
+                    csl * suz + snl * svz + zc * w2z))
+    return out
+
+
+def _light_kinds(prep: Prepared) -> list:
+    return [int(k) for k in prep.ltab[:prep.n_lights, L_KIND].tolist()]
+
+
+def light_pdf(prep: Prepared, px_, py_, pz_, gdx, gdy, gdz, g2, ginv):
+    """Mean over the NEE lights of each light's pdf of direction g from p
+    (hittable_list.rs:60-69): quad area pdf (quad.rs:92-102), sphere
+    solid-angle pdf (sphere.rs:102-115).  ``g2 = max(|g|^2, 1e-30)``,
+    ``ginv = 1 / sqrt(g2)``."""
+    lp = torch.zeros_like(px_)
+    for lt, kind in zip(prep.ltab, _light_kinds(prep)):
+        if kind == LIGHT_QUAD:
+            lnx, lny, lnz = lt[L_NX], lt[L_NY], lt[L_NZ]
+            dn = lnx * gdx + lny * gdy + lnz * gdz
+            safe = torch.where(torch.abs(dn) < 1e-8, 1.0, dn)
+            ndp = lnx * px_ + lny * py_ + lnz * pz_
+            tq = (lt[L_DP] - ndp) / safe
+            hx = px_ + tq * gdx - lt[L_QX]
+            hy = py_ + tq * gdy - lt[L_QY]
+            hz = pz_ + tq * gdz - lt[L_QZ]
+            lux, luy, luz = lt[L_UX], lt[L_UY], lt[L_UZ]
+            lvx, lvy, lvz = lt[L_VX], lt[L_VY], lt[L_VZ]
+            lwx, lwy, lwz = lt[L_WX], lt[L_WY], lt[L_WZ]
+            alp = (lwx * (hy * lvz - hz * lvy) + lwy * (hz * lvx - hx * lvz)
+                   + lwz * (hx * lvy - hy * lvx))
+            bet = (lwx * (luy * hz - luz * hy) + lwy * (luz * hx - lux * hz)
+                   + lwz * (lux * hy - luy * hx))
+            okq = ((torch.abs(dn) >= 1e-8) & (tq > T_MIN) & (tq < T_MAX)
+                   & (alp >= 0.0) & (alp <= 1.0) & (bet >= 0.0)
+                   & (bet <= 1.0))
+            cosq = torch.abs(dn) * ginv
+            pdf = torch.where(okq, tq * tq * g2 / torch.clamp(
+                cosq * lt[L_AREA], min=1e-30), 0.0)
+        else:
+            ocx = lt[L_CX] - px_
+            ocy = lt[L_CY] - py_
+            ocz = lt[L_CZ] - pz_
+            hq = gdx * ocx + gdy * ocy + gdz * ocz
+            rl = lt[L_RAD]
+            cq = ocx * ocx + ocy * ocy + ocz * ocz - rl * rl
+            disc = hq * hq - g2 * cq
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            inv_g2 = 1.0 / g2
+            tn = (hq - sq) * inv_g2
+            tf = (hq + sq) * inv_g2
+            rt = torch.where((tn > T_MIN) & (tn < T_MAX), tn, tf)
+            oks = (disc > 0.0) & (rt > T_MIN) & (rt < T_MAX)
+            d2 = torch.clamp(ocx * ocx + ocy * ocy + ocz * ocz, min=1e-30)
+            cmax = torch.sqrt(torch.clamp(1.0 - rl * rl / d2, min=0.0))
+            sang = _TWO_PI * (1.0 - cmax)
+            pdf = torch.where(oks, 1.0 / torch.clamp(sang, min=1e-30), 0.0)
+        lp = lp + pdf
+    return lp * _recip(prep.n_lights)
+
+
+def _bounce_plain(prep: Prepared, v: dict, u, u_mis, max_depth: int) -> None:
+    """One bounce of live lanes (bounce_body, pallas_megakernel.py:1202-1771:
+    spheres and quads, solid albedo; the path integrator, or with
+    ``prep.mis`` the NEE/MIS estimator without its isotropic branch, which
+    comes with media), updating ``v`` in place.  ``u_mis`` holds u5-u10.
+    Expression order matches csrc/path.cuh, which is built without
     contracted multiply-adds, so the two round identically."""
     ox, oy, oz, dx, dy, dz = (v[k] for k in ("ox", "oy", "oz",
                                              "dx", "dy", "dz"))
@@ -221,15 +434,26 @@ def _bounce_plain(prep: Prepared, v: dict, u, max_depth: int) -> None:
     alive, b = v["alive"], v["b"]
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
-    t, bi = _intersect_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a)
+    t, bi, qi = _intersect_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a)
     hit = t < _BIG
-    row = prep.tab[torch.where(hit, bi, 0)]
-    kind = torch.where(hit, row[:, 8], 0.0)
-    car, cag, cab, fz, io = (row[:, k] for k in (9, 10, 11, 12, 13))
+    qwin = qi >= 0
+    row = prep.tab[torch.where(hit & ~qwin, bi, 0)]
+    qrow = prep.qtab[torch.where(qwin, qi, 0)]
+
+    def pick(qcol, scol):
+        return torch.where(qwin, qrow[:, qcol], row[:, scol])
+
+    kind = torch.where(qwin, qrow[:, Q_KIND],
+                       torch.where(hit, row[:, 8], 0.0))
+    car, cag, cab = pick(Q_AR, 9), pick(Q_AG, 10), pick(Q_AB, 11)
+    fz, io = pick(Q_FUZZ, 12), pick(Q_IOR, 13)
     invr = row[:, 7]
-    owx = torch.where(hit, (t * dx - (row[:, 0] - ox)) * invr, 0.0)
-    owy = torch.where(hit, (t * dy - (row[:, 1] - oy)) * invr, 0.0)
-    owz = torch.where(hit, (t * dz - (row[:, 2] - oz)) * invr, 1.0)
+    owx = torch.where(qwin, qrow[:, Q_NX], torch.where(
+        hit, (t * dx - (row[:, 0] - ox)) * invr, 0.0))
+    owy = torch.where(qwin, qrow[:, Q_NY], torch.where(
+        hit, (t * dy - (row[:, 1] - oy)) * invr, 0.0))
+    owz = torch.where(qwin, qrow[:, Q_NZ], torch.where(
+        hit, (t * dz - (row[:, 2] - oz)) * invr, 1.0))
 
     # background on a miss (renderer.wgsl:233-239)
     inv_len = 1.0 / torch.sqrt(a)
@@ -256,9 +480,11 @@ def _bounce_plain(prep: Prepared, v: dict, u, max_depth: int) -> None:
     ny = sgn * owy
     nz = sgn * owz
 
-    # emission (DiffuseLight adds, then dies)
+    # emission (DiffuseLight adds, then dies); book 3 counts the front face
+    # only (the_rest_of_your_life/material.rs:154-161)
     is_light = kind == float(DIFFUSE_LIGHT)
-    lf = alive * torch.where(is_light, 1.0, 0.0)
+    emit = is_light & front if prep.mis else is_light
+    lf = alive * torch.where(emit, 1.0, 0.0)
     rx = rx + lf * ax * car
     ry = ry + lf * ay * cag
     rz = rz + lf * az * cab
@@ -311,32 +537,95 @@ def _bounce_plain(prep: Prepared, v: dict, u, max_depth: int) -> None:
 
     is_met = kind == float(METAL)
     is_die = kind == float(DIELECTRIC)
-    is_iso = kind == float(ISOTROPIC)
-    ndx = torch.where(is_met, mx, torch.where(
-        is_die, ex, torch.where(is_iso, rvx, lx)))
-    ndy = torch.where(is_met, my, torch.where(
-        is_die, ey, torch.where(is_iso, rvy, ly)))
-    ndz = torch.where(is_met, mz, torch.where(
-        is_die, ez, torch.where(is_iso, rvz, lz)))
-    atr = torch.where(is_die, 1.0, car)
-    atg = torch.where(is_die, 1.0, cag)
-    atb = torch.where(is_die, 1.0, cab)
-    alive = alive * torch.where(is_met & ~met_ok, 0.0, 1.0)
-    live = alive > 0.0
-    ax = ax * torch.where(live, atr, 1.0)
-    ay = ay * torch.where(live, atg, 1.0)
-    az = az * torch.where(live, atb, 1.0)
-    # Russian roulette from bounce 5 (renderer.wgsl:225-231)
-    if max_depth > RR_START_BOUNCE:
-        do_rr = b >= RR_START_BOUNCE
-        pmax = torch.maximum(ax, torch.maximum(ay, az))
-        p = torch.clamp(pmax, RR_P_MIN, RR_P_MAX)
-        killed = do_rr & ~(u4 <= p)
-        alive = alive * torch.where(killed, 0.0, 1.0)
-        scale = torch.where(do_rr & (alive > 0.0), 1.0 / p, 1.0)
-        ax = ax * scale
-        ay = ay * scale
-        az = az * scale
+    if not prep.mis:
+        is_iso = kind == float(ISOTROPIC)
+        ndx = torch.where(is_met, mx, torch.where(
+            is_die, ex, torch.where(is_iso, rvx, lx)))
+        ndy = torch.where(is_met, my, torch.where(
+            is_die, ey, torch.where(is_iso, rvy, ly)))
+        ndz = torch.where(is_met, mz, torch.where(
+            is_die, ez, torch.where(is_iso, rvz, lz)))
+        atr = torch.where(is_die, 1.0, car)
+        atg = torch.where(is_die, 1.0, cag)
+        atb = torch.where(is_die, 1.0, cab)
+        alive = alive * torch.where(is_met & ~met_ok, 0.0, 1.0)
+        live = alive > 0.0
+        ax = ax * torch.where(live, atr, 1.0)
+        ay = ay * torch.where(live, atg, 1.0)
+        az = az * torch.where(live, atb, 1.0)
+        # Russian roulette from bounce 5 (renderer.wgsl:225-231)
+        if max_depth > RR_START_BOUNCE:
+            do_rr = b >= RR_START_BOUNCE
+            pmax = torch.maximum(ax, torch.maximum(ay, az))
+            p = torch.clamp(pmax, RR_P_MIN, RR_P_MAX)
+            killed = do_rr & ~(u4 <= p)
+            alive = alive * torch.where(killed, 0.0, 1.0)
+            scale = torch.where(do_rr & (alive > 0.0), 1.0 / p, 1.0)
+            ax = ax * scale
+            ay = ay * scale
+            az = az * scale
+    else:
+        # Russian roulette from the per-hit albedo, folded into both
+        # branches' weights (camera.rs:223-237)
+        rr_prob = torch.ones_like(alive)
+        if max_depth > RR_START_BOUNCE:
+            do_rr = b >= RR_START_BOUNCE
+            pmax = torch.maximum(car, torch.maximum(cag, cab))
+            prr = torch.clamp(pmax, RR_P_MIN, RR_P_MAX)
+            rr_prob = torch.where(do_rr, prr, 1.0)
+            alive = alive * torch.where(do_rr & (u4 > prr), 0.0, 1.0)
+        spec = is_met | is_die
+        sdx = torch.where(is_met, mx, ex)
+        sdy = torch.where(is_met, my, ey)
+        sdz = torch.where(is_met, mz, ez)
+        inv_rr = 1.0 / rr_prob
+        swr = torch.where(is_die, 1.0, car) * inv_rr
+        swg = torch.where(is_die, 1.0, cag) * inv_rr
+        swb = torch.where(is_die, 1.0, cab) * inv_rr
+        u5, u6, u7, u8, u9, u10 = u_mis
+        # cosine-weighted material direction (vec3.rs:212-221)
+        bux, buy, buz, bvx, bvy, bvz = _onb(nx, ny, nz)
+        phi2 = _TWO_PI * u5
+        sq6 = torch.sqrt(u6)
+        clx = torch.cos(phi2) * sq6
+        cly = torch.sin(phi2) * sq6
+        clz = torch.sqrt(torch.clamp(1.0 - u6, min=0.0))
+        mdx = clx * bux + cly * bvx + clz * nx
+        mdy = clx * buy + cly * bvy + clz * ny
+        mdz = clx * buz + cly * bvz + clz * nz
+        # the picked light's direction: light l when u9 * n >= l
+        dirs = _light_samples(prep, px_, py_, pz_, u7, u8)
+        ldx, ldy, ldz = dirs[0]
+        for l in range(1, prep.n_lights):
+            pk = u9 * prep.n_lights >= l
+            ldx = torch.where(pk, dirs[l][0], ldx)
+            ldy = torch.where(pk, dirs[l][1], ldy)
+            ldz = torch.where(pk, dirs[l][2], ldz)
+        # 50/50 mixture (MixturePdf::generate, pdf.rs:93-99)
+        use_l = u10 < 0.5
+        gdx = torch.where(use_l, ldx, mdx)
+        gdy = torch.where(use_l, ldy, mdy)
+        gdz = torch.where(use_l, ldz, mdz)
+        g2 = torch.clamp(gdx * gdx + gdy * gdy + gdz * gdz, min=1e-30)
+        ginv = 1.0 / torch.sqrt(g2)
+        cos_th = (nx * gdx + ny * gdy + nz * gdz) * ginv
+        cpdf = torch.clamp(cos_th, min=0.0) * _INV_PI  # pdf.rs:41-49
+        lp = light_pdf(prep, px_, py_, pz_, gdx, gdy, gdz, g2, ginv)
+        pdfv = 0.5 * lp + 0.5 * cpdf  # pdf.rs:88-91
+        ok_diff = pdfv > 0.0
+        # weight = albedo * scattering pdf / (pdf * rr)  (camera.rs:248-253)
+        dw_den = 1.0 / torch.clamp(pdfv * rr_prob, min=1e-30)
+        dwr = car * cpdf * dw_den
+        dwg = cag * cpdf * dw_den
+        dwb = cab * cpdf * dw_den
+        ndx = torch.where(spec, sdx, gdx)
+        ndy = torch.where(spec, sdy, gdy)
+        ndz = torch.where(spec, sdz, gdz)
+        alive = alive * torch.where(spec | ok_diff, 1.0, 0.0)
+        live = alive > 0.0
+        ax = ax * torch.where(live, torch.where(spec, swr, dwr), 1.0)
+        ay = ay * torch.where(live, torch.where(spec, swg, dwg), 1.0)
+        az = az * torch.where(live, torch.where(spec, swb, dwb), 1.0)
     live = alive > 0.0
     b = b + 1.0
     v.update(
@@ -373,7 +662,8 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
         px, py = _slot_xy(slot.to(torch.int64), prep.width, prep.height)
         u = uniforms4(slot.to(torch.int64), sample, 0, STREAM_CAMERA, key)
         o, d = spawn_rays(prep.cam_u, px.to(torch.float32),
-                          py.to(torch.float32), *u, prep.defocus)
+                          py.to(torch.float32), *u, prep.defocus,
+                          sample=sample, sqrt_spp=prep.sqrt_spp)
         new = dict(tm=0.0, ox=o[0], oy=o[1], oz=o[2], dx=d[0], dy=d[1],
                    dz=d[2], ax=1.0, ay=1.0, az=1.0, b=0.0, alive=1.0,
                    mid=1.0)
@@ -383,9 +673,14 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
     live = (v["alive"] > 0.0).nonzero().squeeze(1)
     if live.numel():
         sub = {k: v[k][live] for k in _NAMES}
-        u = uniforms4(slot[live].to(torch.int64), sample[live],
-                      sub["b"].to(torch.int64), STREAM_BOUNCE, key)
-        _bounce_plain(prep, sub, u, max_depth)
+        counter = (slot[live].to(torch.int64), sample[live],
+                   sub["b"].to(torch.int64))
+        u = uniforms4(*counter, STREAM_BOUNCE, key)
+        u_mis = None
+        if prep.mis:
+            u_mis = (uniforms4(*counter, STREAM_MIS_A, key)
+                     + uniforms4(*counter, STREAM_MIS_B, key)[:2])
+        _bounce_plain(prep, sub, u, u_mis, max_depth)
         for k in _NAMES:
             v[k] = v[k].index_put((live,), sub[k])
     return torch.stack([v[k] for k in _NAMES])
@@ -411,9 +706,11 @@ def persist_step_plain(state: torch.Tensor, slot: torch.Tensor,
 
 def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
                  seed: int, *, persist_iters: int, spp: int, max_depth: int,
-                 sample_offset: int = 0) -> None:
+                 sample_offset: int = 0,
+                 work: torch.Tensor | None = None) -> None:
     """One bounded persist launch over every lane, in place.  CUDA tensors
-    launch ``csrc/persist.cu``; CPU tensors run ``persist_step_plain``."""
+    launch ``csrc/persist.cu``; CPU tensors run ``persist_step_plain``.
+    ``work`` as in ``megakernel.path_params`` (CUDA only)."""
     if state.device.type == "cpu":
         return persist_step_plain(state, slot, tables, seed,
                                   persist_iters=persist_iters, spp=spp,
@@ -422,23 +719,11 @@ def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
     R = tables.n_lanes
     _cuda.require(state, "state", torch.float32, (N_STATE, R))
     _cuda.require(slot, "slot", torch.int32, (R,))
-    for name in ("geom", "tab", "clb", "sclb", "cam_u", "bg"):
-        _cuda.require(getattr(tables, name), name, torch.float32)
-    for name in ("cls", "scls"):
-        _cuda.require(getattr(tables, name), name, torch.int32)
-    if tables.geom.data_ptr() % 16:
-        raise ValueError("geom: the kernel reads float4 rows; need 16-byte "
-                         "alignment")
-    k0, k1 = seed_key(seed)
-    t = tables
-    _cuda.launch(
-        "persist", state.data_ptr(), slot.data_ptr(), R,
-        t.geom.data_ptr(), t.tab.data_ptr(), t.geom.shape[0],
-        t.clb.data_ptr(), t.cls.data_ptr(), t.n_clusters,
-        t.sclb.data_ptr(), t.scls.data_ptr(), t.n_sclusters, t.unroll,
-        t.cam_u.data_ptr(), t.bg.data_ptr(), int(t.sky_bg),
-        int(t.defocus), t.width, t.height, spp, max_depth, persist_iters,
-        k0, k1, int(sample_offset))
+    check_tables(tables)
+    params = path_params(tables, seed, spp=spp, max_depth=max_depth,
+                         sample_offset=sample_offset, work=work)
+    _cuda.launch("persist", state.data_ptr(), slot.data_ptr(), R,
+                 ctypes.addressof(params), persist_iters, int(tables.mis))
 
 
 # ------------------------------------------------------------ launch loop
@@ -498,28 +783,35 @@ def _wavefront_pass_persist(tables: Prepared, seed: int, sample_offset: int,
 
 def render_pass_wavefront(scene: Scene, cam, seed: int, *, width: int,
                           height: int, spp: int, max_depth: int,
-                          sample_offset: int = 0, step=persist_step,
+                          sample_offset: int = 0, mis: bool = False,
+                          stratified: bool = False, sqrt_spp: int = 0,
+                          step=persist_step, respawn_step=respawn_pass,
                           device="cpu", stats: dict | None = None
                           ) -> torch.Tensor:
-    """Whole-image render pass on the persist path tracer; returns the
-    radiance SUM [H, W, 3] (the render.render_pass contract).
+    """Whole-image render pass (pallas_wavefront.py:973-1038, non-image
+    scenes); returns the radiance SUM [H, W, 3] (the render.render_pass
+    contract).
 
-    Scenes on ``sorted_persist_route`` sort their lanes between launches.
-    The others (fewer than 256 primitives) run the same loop unsorted, where
-    the JAX package routes them to the one-launch respawn megakernel (K3),
-    which is not ported yet.  ``step`` is the launch: ``persist_step``, or
-    ``persist_step_plain`` on any device for comparisons with the kernel."""
-    megakernel_eligible(scene)
+    Scenes on ``sorted_persist_route`` run the persist launch loop, sorting
+    their lanes between launches; ``step`` is the launch (``persist_step``,
+    or ``persist_step_plain`` on any device for comparisons with the
+    kernel), and ``stats`` receives the loop's counts.  The others go to the
+    respawn megakernel K3 (``render_pass_megakernel``) with ``respawn_step``
+    as its pass."""
+    if not sorted_persist_route(scene, width, height):
+        return render_pass_megakernel(
+            scene, cam, seed, width=width, height=height, spp=spp,
+            max_depth=max_depth, sample_offset=sample_offset, mis=mis,
+            stratified=stratified, sqrt_spp=sqrt_spp, device=device,
+            step=respawn_step)
     tables = prepare_megakernel_cached(
         scene, cam, width=width, height=height,
-        tile_rows=respawn_tile_rows(scene), device=device)
-    sort = sorted_persist_route(scene, width, height)
+        tile_rows=respawn_tile_rows(scene), mis=mis, stratified=stratified,
+        sqrt_spp=sqrt_spp, device=device)
     iters = persist_plain_iters(spp)
     sums = _wavefront_pass_persist(
         tables, seed, sample_offset, spp=spp, max_depth=max_depth,
-        persist_iters=iters, sort_rays=sort,
-        sort_every=persist_sort_every(iters) if sort else 1,
-        step=step, stats=stats)
-    idx = torch.as_tensor(_unswizzle_index(width, height).astype(np.int64),
-                          device=sums.device)
+        persist_iters=iters, sort_rays=True,
+        sort_every=persist_sort_every(iters), step=step, stats=stats)
+    idx = unswizzle_index_on(width, height, sums.device)
     return sums[idx].reshape(height, width, 3)

@@ -3,11 +3,18 @@
 
 ``render_image`` runs a host loop of passes and accumulates (RGB sum,
 sample count), so every pass boundary is a checkpoint; ``render_pass``
-traces one pass on the persist path tracer.  Backends:
+traces one pass.  It routes as the JAX package does: scenes on the sorted
+persist route (>= 256 primitives, at most 2 Mi slot lanes) run the persist
+launch loop (K2), every other scene one launch of the respawn megakernel
+(K3).  Backends:
 
-* ``"wavefront"`` — the CUDA persist kernel (auto on a CUDA device);
-* ``"plain"`` — the kernel's plain PyTorch twin (auto on the CPU; on a CUDA
-  device only when asked for, to compare against the kernel).
+* ``"wavefront"`` (auto for ``path`` on a CUDA device) and ``"megakernel"``
+  (auto for ``mis``) — the CUDA kernels.  The two are one backend under two
+  names, kept as the JAX package names them: both route by the scene as
+  above, and ``"megakernel"`` does not force K3;
+* ``"plain"`` — the plain PyTorch twin of the kernel the route uses (auto
+  on the CPU; on a CUDA device only when asked for, to compare against the
+  kernel).
 
 Unlike the JAX package there is no fallback: a kernel that fails to build
 or launch raises, ``device="cuda"`` without a card raises, and nothing moves
@@ -25,7 +32,7 @@ from .config import CameraParams, RenderConfig, derive_camera
 from .ops.megakernel import megakernel_eligible
 from .scene import Scene
 
-BACKENDS = ("wavefront", "plain")
+BACKENDS = ("wavefront", "megakernel", "plain")
 
 # Per-pass ray budget for kernel backends (render.py:291-294 there).
 _PASS_RAY_TARGET = 64 * 1024 * 1024
@@ -57,15 +64,18 @@ def finalize_image(accum_sum: np.ndarray, spp_total: int) -> np.ndarray:
 
 def resolve_backend(scene: Scene, integrator: str = "path",
                     backend: str = "auto", device="cpu") -> str:
-    """'auto' picks ``"wavefront"`` on a CUDA device and ``"plain"`` on
-    the CPU for scenes the port covers; other scenes and integrators raise
-    ``NotImplementedError`` (see ops.megakernel.megakernel_eligible)."""
+    """'auto' follows the JAX package's rule (render.py:248-282 there): on a
+    CUDA device ``path`` -> ``"wavefront"`` and ``mis`` -> ``"megakernel"``;
+    on the CPU ``"plain"``.  Scenes and integrators the port does not cover
+    raise ``NotImplementedError`` (see ops.megakernel.megakernel_eligible)."""
     megakernel_eligible(scene, integrator)
     if backend != "auto":
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
         return backend
-    return "wavefront" if _device(device).type == "cuda" else "plain"
+    if _device(device).type != "cuda":
+        return "plain"
+    return "megakernel" if integrator == "mis" else "wavefront"
 
 
 def effective_spp_per_pass(cfg: RenderConfig, spp_total: int,
@@ -86,19 +96,26 @@ def effective_spp_per_pass(cfg: RenderConfig, spp_total: int,
 def render_pass(scene: Scene, cam: CameraParams, seed: int, *, width: int,
                 height: int, spp: int, max_depth: int,
                 integrator: str = "path", sample_offset: int = 0,
+                stratified: bool = False, sqrt_spp: int = 0,
                 backend: str = "auto", device="cpu",
                 stats: Optional[dict] = None) -> torch.Tensor:
     """Trace ``spp`` samples per pixel, absolute sample indices
-    ``sample_offset + [0, spp)``; returns the RGB radiance SUM [H, W, 3]
-    as a float32 tensor on ``device``."""
+    ``sample_offset + [0, spp)`` (stratified over a ``sqrt_spp`` grid when
+    asked); returns the RGB radiance SUM [H, W, 3] as a float32 tensor on
+    ``device``.  ``stats`` receives the persist loop's counts (sorted route
+    only)."""
+    from .ops import megakernel as mk
     from .ops import wavefront as wf
 
     dev = _device(device)
     backend = resolve_backend(scene, integrator, backend, dev)
-    step = wf.persist_step_plain if backend == "plain" else wf.persist_step
+    plain = backend == "plain"
     return wf.render_pass_wavefront(
         scene, cam, seed, width=width, height=height, spp=spp,
-        max_depth=max_depth, sample_offset=sample_offset, step=step,
+        max_depth=max_depth, sample_offset=sample_offset,
+        mis=integrator == "mis", stratified=stratified, sqrt_spp=sqrt_spp,
+        step=wf.persist_step_plain if plain else wf.persist_step,
+        respawn_step=mk.respawn_pass_plain if plain else mk.respawn_pass,
         device=dev, stats=stats)
 
 
@@ -108,15 +125,16 @@ def render_image(scene: Scene, cfg: RenderConfig, *,
                  on_pass=None, device="cpu"):
     """Full render: host pass loop over spp batches.  Returns
     (image_u8 [H, W, 3], {"accum": sum [H, W, 3], "spp_done": n});
-    ``accum_state`` from an earlier call resumes the accumulation."""
-    if cfg.stratified:
-        raise NotImplementedError(
-            "stratified sampling needs sub-slice K2(d), not ported yet")
+    ``accum_state`` from an earlier call resumes the accumulation.  A
+    stratified config renders floor(sqrt(spp))^2 samples (render.py:351-353
+    there)."""
     dev = _device(device)
     backend = resolve_backend(scene, integrator, backend, dev)
     cam = derive_camera(cfg, device=dev)
     h, w = cfg.image_height, cfg.image_width
-    spp_total = cfg.samples_per_pixel
+    stratified = cfg.stratified
+    sqrt_spp = int(np.sqrt(cfg.samples_per_pixel)) if stratified else 0
+    spp_total = sqrt_spp * sqrt_spp if stratified else cfg.samples_per_pixel
     if accum_state is None:
         accum = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
         done = 0
@@ -130,7 +148,8 @@ def render_image(scene: Scene, cfg: RenderConfig, *,
         accum = accum + render_pass(
             scene, cam, cfg.seed, width=w, height=h, spp=this,
             max_depth=cfg.max_depth, integrator=integrator,
-            sample_offset=done, backend=backend, device=dev)
+            sample_offset=done, stratified=stratified, sqrt_spp=sqrt_spp,
+            backend=backend, device=dev)
         done += this
         if progress is not None:
             progress(done, spp_total)

@@ -81,7 +81,7 @@ def test_scene_from_numpy_bit_equal(name):
 
 
 @pytest.mark.parametrize("name,sub_slice", [
-    ("book2_bouncing_spheres", "K2(b)"), ("book2_quads", "K2(c)"),
+    ("book2_bouncing_spheres", "K2(b)"), ("book2_simple_light", "K2(c)"),
     ("book2_cornell_smoke", "K2(c)")])
 def test_unported_features_raise_naming_the_sub_slice(name, sub_slice):
     jscene, _, _ = jmodels.get_scene(name, dict(image_width=32))
@@ -107,7 +107,11 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import rustraytrace_tpu_torch, rustraytrace_tpu_torch.render\n"
         "import rustraytrace_tpu_torch.native\n"
         "import rustraytrace_tpu_torch.ops.wavefront\n"
+        "import rustraytrace_tpu_torch.ops.megakernel\n"
         "import rustraytrace_tpu_torch.ops.hit\n"
+        "import rustraytrace_tpu_torch.ops._cuda\n"
+        "import rustraytrace_tpu_torch.models\n"
+        "rustraytrace_tpu_torch.models.book3_cornell_box()\n"
         "import rustraytrace_tpu_torch.utils.image_io\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rustraytrace_tpu' or m.startswith('rustraytrace_tpu.')]\n"

@@ -81,6 +81,98 @@ def test_kernel_render_bitwise_invariant_to_sort(cuda):
 
 
 @pytest.mark.cuda
+def test_sphere_hit_quads_kernel_matches_plain(cuda):
+    """K1 after its quad test moved to rtt_common.cuh: the Cornell box's
+    sphere and 12 quads, rays from inside the box."""
+    scene, _, _ = models.book3_cornell_box(dict(image_width=32))
+    sph = hit.pack_sphere_table(scene).to(cuda)
+    quad = hit.pack_quad_table(scene).to(cuda)
+    rng = np.random.default_rng(5)
+    o = torch.from_numpy(rng.uniform(50, 500, (16384, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(16384, 3)).astype(np.float32))
+    t = torch.zeros(16384)
+    o, d, t = o.to(cuda), d.to(cuda), t.to(cuda)
+    tk, ik = hit.sphere_hit(o, d, t, sph, quad, False)
+    tp, ip = hit.sphere_hit_plain(o, d, t, sph, quad, False)
+    assert int((ik >= sph.shape[0]).sum()) > 8000  # quad winners
+    assert torch.equal(ik, ip)
+    assert torch.equal(tk, tp)
+
+
+def _cornell_tables(cuda, width, spp):
+    scene, cfg, _ = models.book3_cornell_box(
+        dict(image_width=width, samples_per_pixel=spp))
+    n = int(np.sqrt(spp))
+    return mk.prepare_megakernel(scene, derive_camera(cfg), width=width,
+                                 height=cfg.image_height, mis=True,
+                                 stratified=True, sqrt_spp=n, device=cuda)
+
+
+@pytest.mark.cuda
+def test_persist_launch_mis_quads_matches_plain_step(cuda):
+    tables = _cornell_tables(cuda, 64, 4)
+    st_k = torch.zeros((wf.N_STATE, tables.n_lanes), device=cuda)
+    st_p = st_k.clone()
+    slot = torch.arange(tables.n_lanes, dtype=torch.int32, device=cuda)
+    kw = dict(persist_iters=8, spp=4, max_depth=50, sample_offset=2)
+    wf.persist_step(st_k, slot, tables, 11, **kw)
+    wf.persist_step_plain(st_p, slot, tables, 11, **kw)
+    assert float(st_p[wf.R_DONE].sum()) > 0
+    assert torch.equal(st_k, st_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["book3_cornell_box", "book2_cornell_box",
+                                  "book1_three_spheres"])
+def test_respawn_pass_kernel_matches_plain(cuda, name):
+    """K3 against its plain twin, bitwise, and against the unsorted K2 loop
+    on the same tables; the work counters see every bounce."""
+    scene, cfg, integ = models.get_scene(name, dict(image_width=64))
+    mis = integ == "mis"
+    tables = mk.prepare_megakernel(
+        scene, derive_camera(cfg), width=64, height=cfg.image_height,
+        mis=mis, stratified=cfg.stratified, sqrt_spp=2 if mis else 0,
+        device=cuda)
+    before = _cuda.launch_counts()["megakernel"]
+    k3 = mk.respawn_pass(tables, 9, 4, 4, 50)
+    assert _cuda.launch_counts()["megakernel"] == before + 1
+    # the counting instance computes the same sums
+    work = torch.zeros(3, dtype=torch.int64, device=cuda)
+    k3_counted = mk.respawn_pass(tables, 9, 4, 4, 50, work=work)
+    plain = mk.respawn_pass_plain(tables, 9, 4, 4, 50)
+    k2 = wf._wavefront_pass_persist(tables, 9, 4, spp=4, max_depth=50,
+                                    persist_iters=16, sort_rays=False)
+    assert float(plain.sum()) > 0
+    assert torch.equal(k3, plain)
+    assert torch.equal(k3, k2)
+    assert torch.equal(k3, k3_counted)
+    assert int(work[0]) >= tables.n_lanes * 4  # at least a bounce a path
+
+
+@pytest.mark.cuda
+def test_respawn_pass_two_level_cull_matches_plain(cuda):
+    """K3 under the two-level cull (>= 16 SAH clusters), which no ported
+    reference scene reaches: 1500 spheres over the ground sphere."""
+    from rustraytrace_tpu_torch import RenderConfig, SceneBuilder
+
+    rng = np.random.default_rng(4)
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian((0.5, 0.5, 0.5)))
+    mat = b.metal((0.7, 0.6, 0.5), 0.1)
+    for x, z, r in zip(rng.uniform(-15, 15, 1500), rng.uniform(-15, 15, 1500),
+                       rng.uniform(0.1, 0.3, 1500)):
+        b.add_sphere((float(x), float(r), float(z)), float(r), mat)
+    cfg = RenderConfig(image_width=96)
+    tables = mk.prepare_megakernel(b.build(), derive_camera(cfg), width=96,
+                                   height=cfg.image_height, device=cuda)
+    assert tables.n_sclusters > 1
+    k3 = mk.respawn_pass(tables, 3, 0, 4, 50)
+    plain = mk.respawn_pass_plain(tables, 3, 0, 4, 50)
+    assert float(plain.sum()) > 0
+    assert torch.equal(k3, plain)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_tensors(cuda):
     scene, _, _ = models.book1_random_spheres(dict(image_width=64))
     sph = hit.pack_sphere_table(scene).to(cuda)

@@ -99,3 +99,68 @@ def test_camera_spawn_matches_jax_generate_rays():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(torch.stack(d, 1).numpy(), np.asarray(d_ref),
                                rtol=1e-5, atol=1e-5)
+
+
+def _field_scene(n, seed):
+    """n small spheres scattered over the flagship's ground sphere."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian((0.5, 0.5, 0.5)))
+    mat = b.lambertian((0.4, 0.2, 0.1))
+    for x, z, r in zip(rng.uniform(-15, 15, n), rng.uniform(-15, 15, n),
+                       rng.uniform(0.1, 0.3, n)):
+        b.add_sphere((float(x), float(r), float(z)), float(r), mat)
+    return b.build()
+
+
+def _cull_tables(name):
+    if name == "flagship":
+        scene, cfg, _ = models.book1_random_spheres(dict(image_width=32))
+    else:
+        scene = _field_scene(1500, 4)
+        cfg = RenderConfig(image_width=32)
+    return mk.prepare_megakernel(scene, derive_camera(cfg), width=32,
+                                 height=cfg.image_height)
+
+
+def _ray_args(o, d):
+    o = torch.as_tensor(np.asarray(o, np.float32).reshape(-1, 3))
+    d = torch.as_tensor(np.asarray(d, np.float32).reshape(-1, 3))
+    a = (d * d).sum(1)
+    return (*o.T, *d.T, a, 1.0 / a)
+
+
+@pytest.mark.parametrize("name", ["flagship", "field_1500"])
+def test_plain_cull_finds_the_full_scan_winner(name):
+    """The twin's cluster cull (one level on the flagship, two on a 1500-
+    sphere field) picks the full scan's winner on seeded rays."""
+    tables = _cull_tables(name)
+    assert tables.n_clusters > 0
+    assert (tables.n_sclusters > 1) == (name == "field_1500")
+    rng = np.random.default_rng(8)
+    o = rng.uniform(-12, 12, (4096, 3)) + np.asarray([0.0, 3.0, 0.0])
+    d = np.where((rng.uniform(size=4096) < 0.7)[:, None],
+                 rng.uniform(-10, 10, (4096, 3)) * [1, 0, 1] - o,
+                 rng.normal(size=(4096, 3)))
+    args = _ray_args(o, d)
+    t_c, i_c = wf._sphere_hits_plain(tables, *args)
+    t_f, i_f = wf._sphere_rows_min(tables.geom, *args)
+    hit = t_f < 1e29
+    assert int(hit.sum()) > 2000
+    assert torch.equal(t_c, t_f)
+    assert torch.equal(i_c[hit], i_f[hit])
+
+
+def test_plain_cull_drops_a_root_past_its_box_as_the_kernel_does():
+    """A ray 3.5e-5 under the ground sphere's surface (r = 1000), from a
+    4K flagship path: the f32 exit root (~1.5e-3) lies past the box's top
+    face (exit 8.5e-4 < T_MIN), so the kernel's cull misses the ground
+    where a full scan hits it.  The twin must cull the same way."""
+    tables = _cull_tables("flagship")
+    args = _ray_args((-0.144117892, -3.47942114e-05, -0.137541652),
+                     (0.0369626693, 0.0410585999, -0.281303614))
+    t_f, i_f = wf._sphere_rows_min(tables.geom, *args)
+    assert float(t_f[0]) < 2e-3
+    assert float(tables.geom[int(i_f[0]), 3]) == 1e6  # the ground sphere
+    t_c, _ = wf._sphere_hits_plain(tables, *args)
+    assert float(t_c[0]) > 1e29

@@ -68,6 +68,13 @@ def test_slot_swizzle_equal_jax(w, h):
     np.testing.assert_array_equal(py, np.asarray(jpy))
 
 
+def test_device_unswizzle_index_is_cached():
+    idx = mk.unswizzle_index_on(100, 50, "cpu")
+    assert idx.dtype == torch.int64
+    np.testing.assert_array_equal(idx.numpy(), mk._unswizzle_index(100, 50))
+    assert mk.unswizzle_index_on(100, 50, torch.device("cpu")) is idx
+
+
 @pytest.mark.parametrize("width", [64, 1200, 3840])
 @pytest.mark.parametrize("name", BOOK1)
 def test_routing_predicates_equal_jax(monkeypatch, name, width):

@@ -70,7 +70,10 @@ def test_passes_resume_and_route():
         dict(image_width=32, samples_per_pixel=8, max_depth=4,
              spp_per_pass=4))
     assert render.resolve_backend(scene, "path", device="cpu") == "plain"
-    with pytest.raises(NotImplementedError, match="K2"):
+    # 'mis' runs in-kernel (K3 / K2(d)) and needs the scene's NEE lights
+    cornell, _, _ = models.book3_cornell_box()
+    assert render.resolve_backend(cornell, "mis", device="cpu") == "plain"
+    with pytest.raises(NotImplementedError, match="NEE lights"):
         render.resolve_backend(scene, "mis")
     seen = []
     _, full = render.render_image(scene, cfg, on_pass=seen.append)
