@@ -9,21 +9,118 @@ numbers behind PERF.md's findings:
 5. the respawn megakernel K3 on its three cells: the Book-3 Cornell box
    (600x600, 100 spp stratified, depth 50, MIS), the Book-2 Cornell box
    (600x600, 200 spp, path) and the flagship at 3840x2160 (16 spp): the
-   kernel alone over ``--reps`` reps, then one profiled end-to-end call.
+   kernel alone over ``--reps`` reps, then one profiled end-to-end call;
+6. the Book-2 final scene (``get_scene("the_next_week")``, 400x400, 250
+   spp, depth 4) through ``render.render_image``: warm wall time over
+   ``--reps`` reps, the launch loop's counts, then one profiled call.
 
     python3 chip_measure.py [--reps 3] [--spp 1024]
+    python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
-``chip_smoke.py`` drives it.  Prints the card's name, power limit and SM
-clock first.  Needs CUDA; imports nothing of JAX.
+``chip_smoke.py`` drives it.  ``--ab DIR`` instead times the flagship
+(``render_pass`` and one K2 launch), the Book-3 Cornell box
+(``render_image`` and one K3 pass) and the 4K flagship pass
+(``render_pass``, K3) with the package of the checkout DIR
+and with this one, in the order DIR, this, this, DIR, each in its own
+process, and prints one JSON line per process.  Prints the card's name,
+power limit and SM clock first.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import subprocess
 import sys
 import time
+
+
+def _ab_child(reps: int) -> dict:
+    """Warm timings of the flagship and the Book-3 Cornell box with the
+    package on sys.path; uses only calls the earlier slices have too."""
+    import torch
+
+    from rustraytrace_tpu_torch import models, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    import rustraytrace_tpu_torch
+
+    dev = torch.device("cuda")
+    out: dict = {"package": rustraytrace_tpu_torch.__file__}
+
+    def walls(fn) -> list:
+        fn()  # warm: build, tables, allocator
+        res = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            res.append(time.perf_counter() - t0)
+        return res
+
+    def event_ms(fn) -> float:
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    sf, cf, _ = models.book1_random_spheres(
+        dict(image_width=1200, samples_per_pixel=1024, max_depth=50))
+    camf = derive_camera(cf, device=dev)
+    out["flagship_render_pass_s"] = walls(lambda: render.render_pass(
+        sf, camf, cf.seed, width=1200, height=675, spp=1024, max_depth=50,
+        device=dev))
+    tabf = mk.prepare_megakernel(sf, camf, width=1200, height=675,
+                                 device=dev)
+    slot = torch.arange(tabf.n_lanes, dtype=torch.int32, device=dev)
+    out["flagship_k2_launch_ms"] = event_ms(lambda: wf.persist_step(
+        torch.zeros((wf.N_STATE, tabf.n_lanes), device=dev), slot, tabf, 3,
+        persist_iters=8, spp=1024, max_depth=50))
+    s3, c3, _ = models.book3_cornell_box()
+    out["book3_render_image_s"] = walls(lambda: render.render_image(
+        s3, c3, integrator="mis", device=dev))
+    tab3 = mk.prepare_megakernel(
+        s3, derive_camera(c3, device=dev), width=600, height=600, mis=True,
+        stratified=True, sqrt_spp=10, device=dev)
+    out["book3_k3_pass_ms"] = event_ms(
+        lambda: mk.respawn_pass(tab3, c3.seed, 0, 100, 50))
+    s4, c4, _ = models.book1_random_spheres(dict(image_width=3840))
+    cam4 = derive_camera(c4, device=dev)
+    out["flagship_4k_render_pass_s"] = walls(lambda: render.render_pass(
+        s4, cam4, c4.seed, width=3840, height=2160, spp=16, max_depth=50,
+        device=dev))
+    return out
+
+
+def _ab(parent: str, reps: int) -> int:
+    """Run _ab_child with the package of ``parent`` and of this checkout,
+    in turns (parent, change, change, parent), one process each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for label, tree in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        tree = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=tree)
+        # -P: the script's own directory must not shadow the tree's package
+        res = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), "--ab-child",
+             "--reps", str(reps)], cwd=tree, env=env, capture_output=True,
+            text=True, timeout=1200)
+        if res.returncode != 0:
+            print(res.stdout, res.stderr, file=sys.stderr)
+            return res.returncode
+        print(json.dumps({"tree": label, **json.loads(
+            res.stdout.strip().splitlines()[-1])}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -32,10 +129,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--spp", type=int, default=1024)
+    ap.add_argument("--ab", metavar="DIR")
+    ap.add_argument("--ab-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_measure: CUDA is not available", file=sys.stderr)
         return 1
+    if args.ab_child:
+        print(json.dumps(_ab_child(args.reps)))
+        return 0
     from rustraytrace_tpu_torch import models, render
     from rustraytrace_tpu_torch.config import derive_camera
     from rustraytrace_tpu_torch.ops import megakernel as mk
@@ -45,14 +148,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), flush=True)
+    if args.ab:
+        return _ab(args.ab, args.reps)
     dev = torch.device("cuda")
     spp, depth = args.spp, 50
     scene, cfg, _ = models.book1_random_spheres(
         dict(image_width=1200, samples_per_pixel=spp, max_depth=depth))
     w, h = cfg.image_width, cfg.image_height
     cam = derive_camera(cfg, device=dev)
-    tables = mk.prepare_megakernel(scene, derive_camera(cfg), width=w,
-                                   height=h, device=dev)
+    tables = mk.prepare_megakernel(scene, cam, width=w, height=h,
+                                   device=dev)
     paths = w * h * spp
 
     def loop(sort: bool, iters: int) -> dict:
@@ -90,8 +195,8 @@ def main() -> int:
         print(f"render_pass rep {rep}: {wall:.4f} s "
               f"{paths / wall / 1e6:.2f} Mpaths/s", flush=True)
     t0 = time.perf_counter()
-    mk.prepare_megakernel(scene, derive_camera(cfg), width=w, height=h,
-                          device=dev)
+    mk.prepare_megakernel(scene, derive_camera(cfg, device=dev), width=w,
+                          height=h, device=dev)
     torch.cuda.synchronize()
     print(f"prep {time.perf_counter() - t0:.4f} s", flush=True)
 
@@ -136,7 +241,8 @@ def main() -> int:
     ]
     for label, sc, cf, cspp, kw, end_to_end in cells:
         cw, ch = cf.image_width, cf.image_height
-        tk = mk.prepare_megakernel(sc, derive_camera(cf), width=cw,
+        tk = mk.prepare_megakernel(sc, derive_camera(cf, device=dev),
+                                   width=cw,
                                    height=ch, device=dev, **kw)
         for rep in range(-1, args.reps):  # rep -1 warms up
             torch.cuda.synchronize()
@@ -148,6 +254,31 @@ def main() -> int:
                   f"{cw * ch * cspp / wall / 1e6:.2f} Mpaths/s", flush=True)
         end_to_end()  # warm: tables cached, swizzle index built
         profiled(f"{label} end to end", end_to_end)
+
+    s9, c9, _ = models.get_scene("the_next_week")
+    w9, h9, spp9 = c9.image_width, c9.image_height, c9.samples_per_pixel
+    main9 = lambda: render.render_image(s9, c9, device=dev)  # noqa: E731
+    main9()  # warm: kernels, allocator; the tables are built per call
+    for rep in range(args.reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main9()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"the_next_week render_image rep {rep}: {wall:.4f} s "
+              f"{w9 * h9 * spp9 / wall / 1e6:.2f} Mpaths/s", flush=True)
+    stats: dict = {}
+    t0 = time.perf_counter()
+    mk.prepare_megakernel(s9, derive_camera(c9, device=dev), width=w9,
+                          height=h9, tile_rows=wf.wavefront_tile_rows(s9),
+                          device=dev)
+    torch.cuda.synchronize()
+    print(f"the_next_week prep {time.perf_counter() - t0:.4f} s", flush=True)
+    render.render_pass(s9, derive_camera(c9, device=dev), c9.seed,
+                       width=w9, height=h9, spp=spp9, max_depth=c9.max_depth,
+                       device=dev, stats=stats)
+    print(f"the_next_week loop: {stats}", flush=True)
+    profiled("the_next_week render_image", main9)
     return 0
 
 

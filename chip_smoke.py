@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``rustraytrace_tpu_torch``) on one
 NVIDIA GPU: builds the CUDA kernels from ``rustraytrace_tpu_torch/csrc``,
-holds each against its plain PyTorch version, and drives the port's two
+holds each against its plain PyTorch version, and drives the port's three
 main paths on the card:
 
 * the flagship (Book-1 random spheres, 1200x675, depth 50, 1024 spp in one
   pass) through ``render.render_pass`` on the sorted persist kernel K2;
 * the Book-3 Cornell box (600x600, 100 spp stratified 10x10, depth 50,
   NEE/MIS) through ``render.render_image`` on the respawn megakernel K3;
+* the Book-2 final scene (``get_scene("the_next_week")``: 400x400, 250 spp,
+  depth 4, motion, 400 boxes, two constant media, Perlin marble, the
+  earthmap globe, a 1000-sphere cloud) through ``render.render_image`` on
+  the image route: sorted K2 with per-tile launch bounds;
 
-then the other K3 routes (the Book-2 Cornell box at 200 spp, a 4K flagship
-pass), each also held bitwise against the plain twin at its full lane
-count.  Phases: 1 env, 2 build, 3 K1, 4 K2 launch, 4b K2 launch with MIS
-and quads, 5 sort invariance, 6 flagship, 7 Book-3 Cornell box on K3,
-8 other K3 routes and the two-level cluster cull.  The plain twins run at
+then the other routes, each also held bitwise against the plain twin at
+its full lane count.  Phases: 1 env, 2 build (registers of every kernel
+instance), 3 K1, 4 K2 launch, 4b K2 launch with MIS and quads, 5 sort
+invariance, 6 flagship, 7 Book-3 Cornell box on K3, 8 other K3 routes and
+the two-level cluster cull, 9 the final scene (one K2 launch vs the twin,
+sorted with tile bounds == unsorted == K3, the main path, a 104-spp pass
+of scene 9), every other Book-2 scene and ``sphere_field_10k`` at its own
+config, and a MIS scene with the Book-2 features.  The plain twins run at
 reduced spp on the card (the line of each comparison states its size).
 
     python3 chip_smoke.py
@@ -85,7 +92,8 @@ FLAGSHIP_SPP = 1024  # one pass, as the JAX package's bench.py runs it
 # integer work and the camera spawns are not counted, so the bounds are low.
 PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 OPS = dict(sphere=30, box=25, quad=61, path_bounce=231, mis_bounce=317,
-           light_pick=5, light_sample=(15, 76), light_pdf=(68, 50))
+           light_pick=5, light_sample=(15, 76), light_pdf=(68, 50),
+           box_row=30, medium=45, noise=134, texel=27)
 
 
 def _bound(ops: float, nbytes: float):
@@ -97,9 +105,12 @@ def _bound(ops: float, nbytes: float):
 
 
 def _path_ops(work, tables) -> float:
-    """Operations of a path-tracer launch from its work counters (bounces,
-    sphere rows tested, cluster boxes tested) and its tables."""
-    bounces, spheres, boxes = (int(v) for v in work.tolist())
+    """Operations of a path-tracer launch from its work counters
+    (ops/megakernel.py WORK_NAMES: bounces, sphere rows tested, cluster
+    boxes tested, box rows tested, media free flights, Perlin noise
+    evaluations, texel fetches) and its tables."""
+    (bounces, spheres, boxes, box_rows, media, noise,
+     texels) = (int(v) for v in work.tolist())
     per_bounce = OPS["path_bounce"] + tables.n_quads * OPS["quad"]
     if tables.mis:
         kinds = [int(k) for k in tables.ltab[:tables.n_lights, 0].tolist()]
@@ -108,7 +119,16 @@ def _path_ops(work, tables) -> float:
                        + sum(OPS["light_sample"][k] + OPS["light_pdf"][k]
                              for k in kinds))
     return (bounces * per_bounce + spheres * OPS["sphere"]
-            + boxes * OPS["box"])
+            + boxes * OPS["box"] + box_rows * OPS["box_row"]
+            + media * OPS["medium"] + noise * OPS["noise"]
+            + texels * OPS["texel"])
+
+
+def _work(work) -> dict:
+    """The work counters by name (ops/megakernel.py WORK_NAMES)."""
+    from rustraytrace_tpu_torch.ops.megakernel import WORK_NAMES
+
+    return dict(zip(WORK_NAMES, (int(v) for v in work.tolist())))
 
 
 def _cuda_ms_once(fn):
@@ -153,7 +173,11 @@ def _field_scene(n: int, seed: int):
 
 
 def _registers(log: str) -> dict:
-    """Kernel -> 'N regs, S B spill' from the ptxas -v build log."""
+    """Kernel instance -> 'N regs, S B spill' from the ptxas -v build log.
+    The path kernels' instances are named <integrator, features, count>:
+    ``path`` or ``mis``; ``book2`` for the motion, box, media and texture
+    code, ``base`` without it; ``count`` for the work-counting instances,
+    which no timed launch runs."""
     out, name, spill = {}, None, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -161,11 +185,13 @@ def _registers(log: str) -> dict:
             base = next((k for k in ("persist_kernel", "respawn_kernel",
                                      "sphere_hit_kernel") if k in mangled),
                         mangled)
-            # <MIS, COUNT>: the COUNT instances run only to count work
-            name = base + ("<mis" if "ILb1E" in mangled else
-                           "<path" if "ILb0E" in mangled else "")
-            if "<" in name:
-                name += ",count>" if "ELb1EE" in mangled else ">"
+            flags = mangled.split("ILb", 1)[1][:9] if "ILb" in mangled else ""
+            if flags:  # "0ELb1ELb0": <MIS, BOOK2, COUNT>
+                mis, book2, count = (flags[k] == "1" for k in (0, 4, 8))
+                base += (f"<{'mis' if mis else 'path'}, "
+                         f"{'book2' if book2 else 'base'}"
+                         f"{', count' if count else ''}>")
+            name = base
         elif "spill stores" in ln:
             spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
         elif "registers" in ln and name:
@@ -173,6 +199,272 @@ def _registers(log: str) -> dict:
             out[name] = f"{regs} regs, {spill} B spill"
             name = None
     return out
+
+
+def _mis_book2_scene():
+    """A small MIS scene with every Book-2 feature the MIS kernels take: a
+    checkered ground, a Perlin-marble sphere, a moving sphere, a metal box
+    and a quad light that is also the NEE light."""
+    from rustraytrace_tpu_torch import RenderConfig, SceneBuilder
+
+    b = SceneBuilder()
+    b.add_sphere((0, -1000, 0), 1000, b.lambertian(
+        tex=b.checker(0.5, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    b.add_sphere((0, 1, 0), 1, b.lambertian(tex=b.noise(4.0)))
+    b.add_sphere((-2.5, 0.6, 1), 0.6, b.lambertian((0.7, 0.3, 0.1)),
+                 center2=(-2.5, 1.1, 1))
+    b.add_box((1.5, 0, -1), (2.5, 1.2, 0), b.metal((0.8, 0.8, 0.9), 0.2))
+    b.add_quad((-1, 4, -1), (2, 0, 0), (0, 0, 2),
+               b.diffuse_light((6, 6, 6)))
+    b.add_light_quad((-1, 4, -1), (2, 0, 0), (0, 0, 2))
+    cfg = RenderConfig(aspect_ratio=1.0, image_width=320,
+                       samples_per_pixel=4, max_depth=12, vfov=40.0,
+                       lookfrom=(0, 2, 8), lookat=(0, 0.8, 0),
+                       background=(0.1, 0.1, 0.15), stratified=True)
+    return b.build(), cfg
+
+
+def _route_tables(scene, cam, cfg, integ, dev):
+    """(tables, route) as ``render_pass_wavefront`` prepares them for a
+    render of cfg: route 'image', 'sorted' (both K2) or 'k3'."""
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    w, h = cfg.image_width, cfg.image_height
+    if "image" in scene.features:
+        route, rows = "image", wf.wavefront_tile_rows(scene)
+    else:
+        route = "sorted" if wf.sorted_persist_route(scene, w, h) else "k3"
+        rows = mk.respawn_tile_rows(scene)
+    n = int(np.sqrt(cfg.samples_per_pixel)) if cfg.stratified else 0
+    return mk.prepare_megakernel(
+        scene, cam, width=w, height=h, tile_rows=rows, mis=integ == "mis",
+        stratified=cfg.stratified, sqrt_spp=n, device=dev), route
+
+
+def _kernel_vs_plain(tables, route, seed, spp, depth, iters=8):
+    """(bitwise equal, max |diff|) of the route's kernel and its plain twin
+    at the tables' full lanes: one K3 pass of spp, or one K2 launch of
+    iters iterations."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    if route == "k3":
+        k = mk.respawn_pass(tables, seed, 0, spp, depth)
+        p = mk.respawn_pass_plain(tables, seed, 0, spp, depth)
+    else:
+        dev = tables.geom.device
+        R = tables.n_lanes
+        k = torch.zeros((wf.N_STATE, R), dtype=torch.float32, device=dev)
+        p = k.clone()
+        sl = torch.arange(R, dtype=torch.int32, device=dev)
+        kw = dict(persist_iters=iters, spp=spp, max_depth=depth)
+        wf.persist_step(k, sl, tables, seed, **kw)
+        wf.persist_step_plain(p, sl, tables, seed, **kw)
+    torch.cuda.synchronize()
+    return bool(torch.equal(k, p)), torch.abs(k - p).max().item()
+
+
+def _phase9(dev) -> dict:
+    """The Book-2 slice: the final scene's K2 launch against its twin, the
+    launch-loop invariance, the main path through ``render_image``, a
+    scene-9 pass, every other new scene at its own config, and a synthetic
+    MIS scene with the Book-2 features.  Returns the numbers of the
+    kernels line."""
+    import torch
+
+    from rustraytrace_tpu_torch import models, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    img, src = models.earthmap()
+    print(f"[9 earthmap] source {src}, image {img.shape}", flush=True)
+    s9, c9, i9 = models.get_scene("the_next_week")
+    w9, h9, spp9, d9, seed9 = (c9.image_width, c9.image_height,
+                               c9.samples_per_pixel, c9.max_depth, c9.seed)
+    _check((w9, h9, spp9, d9, i9) == (400, 400, 250, 4, "path"),
+           "the_next_week is not the 400x400 250 spp depth-4 final scene")
+    cam9 = derive_camera(c9, device=dev)
+    tab9, route9 = _route_tables(s9, cam9, c9, i9, dev)
+    sort9 = wf.ray_sort_heuristic(s9, wf.slot_lane_count(w9, h9))
+    iters9 = wf.image_route_iters(s9, sort9)
+    bounds9 = wf.persist_adaptive_bounds(iters9)
+    _check(route9 == "image" and sort9 and iters9 == 8
+           and bounds9 == (4, 8, 0.25), "the final scene's route")
+
+    # one K2 launch at the main path's full lanes, bounded per tile
+    R9, tl9 = tab9.n_lanes, tab9.tile_rows * 128
+    sl9 = torch.arange(R9, dtype=torch.int32, device=dev)
+    tb9 = torch.full((R9 // tl9,), iters9, dtype=torch.int32, device=dev)
+    kw9 = dict(persist_iters=iters9, spp=spp9, max_depth=d9,
+               tile_bounds=tb9, tile_lanes=tl9)
+    st_k = torch.zeros((wf.N_STATE, R9), dtype=torch.float32, device=dev)
+    st_p = st_k.clone()
+    wf.persist_step(st_k, sl9, tab9, seed9, **kw9)
+    _, k2_plain_ms = _cuda_ms_once(
+        lambda: wf.persist_step_plain(st_p, sl9, tab9, seed9, **kw9))
+    k2_equal = bool(torch.equal(st_k, st_p))
+    k2_err = torch.abs(st_k - st_p).max().item()
+    rows = [wf._NAMES[k] for k in range(wf.N_STATE)
+            if not torch.equal(st_k[k], st_p[k])]
+    k2_ms = _cuda_ms(lambda: wf.persist_step(
+        torch.zeros((wf.N_STATE, R9), device=dev), sl9, tab9, seed9, **kw9),
+        10)
+    work9 = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
+    wf.persist_step(torch.zeros((wf.N_STATE, R9), device=dev), sl9, tab9,
+                    seed9, work=work9, **kw9)
+    # state read and written once, the slot and the tile bounds read once
+    k2_bound, k2_by = _bound(_path_ops(work9, tab9),
+                             R9 * (2 * wf.N_STATE + 1) * 4 + tb9.numel() * 4)
+    print(f"[9 K2 launch] the_next_week {R9} lanes x {iters9} iterations "
+          f"({tab9.n_sclusters} super-clusters ({tab9.n_ssc_static} static) "
+          f"of {tab9.n_clusters} clusters, {tab9.n_boxes} box rows in "
+          f"{tab9.n_bclusters} clusters, {tab9.n_quads} quad, "
+          f"{tab9.n_media} media): kernel vs plain max |diff| {k2_err:.3g}, "
+          f"rows differing {rows}, bitwise equal (required): {k2_equal}; "
+          f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms; work "
+          f"{_work(work9)}, bound {k2_bound:.4f} ms ({k2_by})", flush=True)
+    _check(k2_equal, "K2 disagrees with its plain step on the final scene")
+
+    # the launch loop: adaptive sorted == uniform unsorted == K3, 2 spp
+    kwa = dict(spp=2, max_depth=d9, persist_iters=iters9)
+    adaptive = wf._wavefront_pass_persist(
+        tab9, seed9, 0, sort_rays=True, sort_every=wf.persist_sort_every(8),
+        adaptive_bounds=bounds9, **kwa)
+    uniform = wf._wavefront_pass_persist(tab9, seed9, 0, sort_rays=False,
+                                         **kwa)
+    k3_final = mk.respawn_pass(tab9, seed9, 0, 2, d9)
+    inv_equal = bool(torch.equal(adaptive, uniform)
+                     and torch.equal(k3_final, uniform))
+    k3f_ms = _cuda_ms(lambda: mk.respawn_pass(tab9, seed9, 0, 2, d9), 5)
+    work3 = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
+    mk.respawn_pass(tab9, seed9, 0, 2, d9, work=work3)
+    k3f_bound, k3f_by = _bound(_path_ops(work3, tab9), R9 * 3 * 4)
+    print(f"[9 invariance] the_next_week {R9} lanes x 2 spp: sorted with "
+          f"tile bounds {bounds9} == unsorted uniform == K3, bitwise "
+          f"(required): {inv_equal}; K3 there {k3f_ms:.3f} ms, bound "
+          f"{k3f_bound:.4f} ms ({k3f_by})", flush=True)
+    _check(inv_equal, "the final scene's sums depend on sort, bounds or "
+           "kernel")
+
+    # ---- the main path: render_image on the card
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img9, st9 = render.render_image(s9, c9, integrator=i9, device=dev)
+    torch.cuda.synchronize()
+    wall9 = time.perf_counter() - t0
+    counts9 = _cuda.launch_counts()
+    acc9 = st9["accum"] / st9["spp_done"]
+    print(f"[9 the_next_week] {w9}x{h9} {spp9} spp depth {d9} through "
+          f"render_image (image route, sorted K2, tile bounds {bounds9}): "
+          f"{wall9:.3f} s, {w9 * h9 * spp9 / wall9:.6g} paths/s; kernel "
+          f"launch counts {counts9}", flush=True)
+    _check(counts9["persist"] > 0 and counts9["megakernel"] == 0,
+           "the main path did not run the persist kernel alone")
+    _check(st9["spp_done"] == spp9 and img9.shape == (h9, w9, 3)
+           and bool(np.isfinite(acc9).all()), "the final scene's image")
+    stats9: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render.render_pass(s9, cam9, seed9, width=w9, height=h9, spp=spp9,
+                       max_depth=d9, device=dev, stats=stats9)
+    torch.cuda.synchronize()
+    warm9 = time.perf_counter() - t0
+    plain9 = render.render_pass(s9, cam9, seed9, width=w9, height=h9, spp=4,
+                                max_depth=d9, backend="plain",
+                                device=dev).cpu().numpy()
+    ch9, z9 = _agreement(acc9, plain9 / 4.0)
+    print(f"[9 the_next_week check] warm render_pass {warm9:.3f} s, "
+          f"{w9 * h9 * spp9 / warm9:.6g} paths/s, {stats9['launches']} "
+          f"launches, {stats9.get('sorts')} sorts; {spp9} spp kernel vs 4 spp "
+          f"plain: channel mean |diff| {ch9:.4g}, 4x4 block max |z| "
+          f"{z9:.3f} (need < 5)", flush=True)
+    _check(z9 < 5.0, "the final scene's image is off")
+
+    # ---- scene 9: one pass of 104 spp at 800x800, depth 40
+    sN, cN, _ = models.get_scene("the_next_week", scene_num=9)
+    wN, hN = cN.image_width, cN.image_height
+    perN = render.effective_spp_per_pass(cN, cN.samples_per_pixel, wN * hN)
+    camN = derive_camera(cN, device=dev)
+    _cuda.reset_launch_counts()
+    statsN: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accN = render.render_pass(sN, camN, cN.seed, width=wN, height=hN,
+                              spp=perN, max_depth=cN.max_depth, device=dev,
+                              stats=statsN)
+    torch.cuda.synchronize()
+    wallN = time.perf_counter() - t0
+    countsN = _cuda.launch_counts()
+    print(f"[9 scene 9] {wN}x{hN} one pass of {perN} spp depth "
+          f"{cN.max_depth}: {wallN:.3f} s, {wN * hN * perN / wallN:.6g} "
+          f"paths/s, {statsN['launches']} launches; kernel launch counts "
+          f"{countsN}", flush=True)
+    _check(perN == 104 and countsN["persist"] == statsN["launches"] > 0
+           and bool(torch.isfinite(accN).all()), "scene 9's pass")
+
+    # ---- every other new scene at its own config, kernel vs plain twin
+    errs = {"the_next_week": k2_err}
+    for name in ("book2_bouncing_spheres", "book2_earth",
+                 "book2_checkered_spheres", "book2_perlin_spheres",
+                 "book2_simple_light", "book2_cornell_smoke",
+                 "sphere_field_10k"):
+        sc, cf, ig = models.get_scene(name)
+        cw, ch = cf.image_width, cf.image_height
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = render.render_image(sc, cf, integrator=ig, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cnt = _cuda.launch_counts()
+        tab, route = _route_tables(sc, derive_camera(cf, device=dev), cf, ig,
+                                   dev)
+        spp_chk = 1 if route == "k3" else 2
+        iters = 2 if name == "sphere_field_10k" else 8
+        eq, err = _kernel_vs_plain(tab, route, cf.seed, spp_chk,
+                                   cf.max_depth, iters)
+        errs[name] = err
+        acc = st["accum"] / st["spp_done"]
+        kern = "megakernel" if route == "k3" else "persist"
+        what = ("1 spp K3 pass" if route == "k3"
+                else f"K2 launch of {iters} iterations at 2 spp")
+        print(f"[9 {name}] {cw}x{ch} {st['spp_done']} spp depth "
+              f"{cf.max_depth} ({route}): {wall:.3f} s, "
+              f"{cw * ch * st['spp_done'] / wall:.6g} paths/s; launch "
+              f"counts {cnt}; same-seed {tab.n_lanes} lanes {what}: kernel "
+              f"vs plain max |diff| {err:.3g}, bitwise equal (required): "
+              f"{eq}", flush=True)
+        _check(cnt[kern] > 0 and sum(cnt.values()) == cnt[kern],
+               f"{name} did not run its route's kernel alone")
+        _check(eq, f"kernel and plain twin differ on {name}")
+        _check(bool(np.isfinite(acc).all()) and acc.mean() > 0.01,
+               f"{name} image")
+
+    # ---- a synthetic MIS scene with the Book-2 features, K2 and K3
+    sm, cm = _mis_book2_scene()
+    tabm, _ = _route_tables(sm, derive_camera(cm, device=dev), cm, "mis",
+                            dev)
+    _check(tabm.book2 and tabm.mis and tabm.moving and tabm.n_boxes > 0
+           and tabm.has_checker and tabm.has_noise, "the MIS scene's tables")
+    eqm2, errm2 = _kernel_vs_plain(tabm, "sorted", 5, 4, cm.max_depth)
+    eqm3, errm3 = _kernel_vs_plain(tabm, "k3", 5, 4, cm.max_depth)
+    errs["mis_book2"] = max(errm2, errm3)
+    print(f"[9 MIS + Book-2] checker, Perlin, moving sphere, box, quad "
+          f"light, {tabm.n_lanes} lanes x 4 spp (2x2 strata): K2 launch and "
+          f"K3 pass vs plain max |diff| {errm2:.3g} / {errm3:.3g}, bitwise "
+          f"equal (required): {eqm2} / {eqm3}", flush=True)
+    _check(eqm2 and eqm3, "kernels and plain twin differ on the MIS scene")
+    return dict(k2_launches=counts9["persist"], k2_err=max(errs.values()),
+                errs=errs, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+                k2_bound=k2_bound, k2_by=k2_by, R9=R9, iters9=iters9,
+                k3f_ms=k3f_ms, k3f_bound=k3f_bound, k3f_by=k3f_by,
+                k2_work=_work(work9), k3f_work=_work(work3),
+                paths_per_s=w9 * h9 * spp9 / wall9)
 
 
 def main() -> int:
@@ -236,7 +528,7 @@ def main() -> int:
 
     # ---- 4: one bounded persist launch, kernel vs plain
     s4, c4, _ = models.book1_random_spheres(dict(image_width=160))
-    tab4 = mk.prepare_megakernel(s4, derive_camera(c4), width=160,
+    tab4 = mk.prepare_megakernel(s4, derive_camera(c4, device=dev), width=160,
                                  height=c4.image_height, device=dev)
     R4 = tab4.n_lanes
     st_k = torch.zeros((wf.N_STATE, R4), dtype=torch.float32, device=dev)
@@ -250,7 +542,7 @@ def main() -> int:
     p_equal = bool(torch.equal(st_k, st_p))
     p_err = torch.abs(st_k - st_p).max().item()
     # time at the main path's shape: the flagship's 856,064 lanes
-    tabF = mk.prepare_megakernel(scene, derive_camera(cfg), width=1200,
+    tabF = mk.prepare_megakernel(scene, derive_camera(cfg, device=dev), width=1200,
                                  height=cfg.image_height, device=dev)
     RF = tabF.n_lanes
     slF = torch.arange(RF, dtype=torch.int32, device=dev)
@@ -259,7 +551,8 @@ def main() -> int:
         torch.zeros((wf.N_STATE, RF), device=dev), slF, tabF, 3, **kwF), 5)
     p_plain_ms = _cuda_ms(lambda: wf.persist_step_plain(
         torch.zeros((wf.N_STATE, RF), device=dev), slF, tabF, 3, **kwF), 1)
-    workF = torch.zeros(3, dtype=torch.int64, device=dev)
+    workF = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                        device=dev)
     wf.persist_step(torch.zeros((wf.N_STATE, RF), device=dev), slF, tabF, 3,
                     work=workF, **kwF)
     # state read and written once, the slot read once
@@ -269,13 +562,13 @@ def main() -> int:
           f"bitwise equal per row min {row_frac.min().item():.6f}, max "
           f"|diff| {p_err:.3g}, state bitwise equal (required): {p_equal}; "
           f"at {RF} lanes x 8 iters: kernel {p_ms:.2f} ms, plain "
-          f"{p_plain_ms:.2f} ms; work {workF.tolist()} (bounces, sphere "
-          f"rows, boxes), bound {p_bound:.3f} ms ({p_by})", flush=True)
+          f"{p_plain_ms:.2f} ms; work {_work(workF)}, bound "
+          f"{p_bound:.3f} ms ({p_by})", flush=True)
     _check(p_equal, "persist kernel disagrees with its plain step")
 
     # ---- 4b: one bounded persist launch with MIS, quads and strata
     sB, cB, _ = models.book3_cornell_box(dict(image_width=160))
-    tabB = mk.prepare_megakernel(sB, derive_camera(cB), width=160,
+    tabB = mk.prepare_megakernel(sB, derive_camera(cB, device=dev), width=160,
                                  height=160, mis=True, stratified=True,
                                  sqrt_spp=2, device=dev)
     stB_k = torch.zeros((wf.N_STATE, tabB.n_lanes), device=dev)
@@ -295,7 +588,7 @@ def main() -> int:
 
     # ---- 5: bitwise invariance of the kernel render to the ray sort
     s5, c5, _ = models.book1_random_spheres(dict(image_width=320))
-    tab5 = mk.prepare_megakernel(s5, derive_camera(c5), width=320,
+    tab5 = mk.prepare_megakernel(s5, derive_camera(c5, device=dev), width=320,
                                  height=c5.image_height, device=dev)
     kw5 = dict(spp=16, max_depth=50, persist_iters=wf.persist_plain_iters(16))
     on = wf._wavefront_pass_persist(tab5, 5, 0, sort_rays=True, **kw5)
@@ -427,13 +720,14 @@ def main() -> int:
     # twin's (4 spp); the work counted by the COUNT instance
     k3_ms = _cuda_ms(lambda: mk.respawn_pass(tab100, seed7, 0, spp7, 50), 2)
     k3_ms4 = _cuda_ms(lambda: mk.respawn_pass(tab100, seed7, off7, 4, 50), 3)
-    work7 = torch.zeros(3, dtype=torch.int64, device=dev)
+    work7 = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                        device=dev)
     mk.respawn_pass(tab100, seed7, 0, spp7, 50, work=work7)
     k3_bound, k3_by = _bound(_path_ops(work7, tab100), R7 * 3 * 4)
     print(f"[7 K3 timing] {R7} lanes: kernel {k3_ms:.2f} ms at {spp7} spp, "
           f"{k3_ms4:.3f} ms at 4 spp; plain twin {k3_plain_ms:.2f} ms at 4 "
-          f"spp; work at {spp7} spp {work7.tolist()} (bounces, sphere rows, "
-          f"boxes), {int(work7[0]) / (R7 * spp7):.3f} bounces/path, bound "
+          f"spp; work at {spp7} spp {_work(work7)}, "
+          f"{int(work7[0]) / (R7 * spp7):.3f} bounces/path, bound "
           f"{k3_bound:.3f} ms ({k3_by})", flush=True)
 
     # ---- 8: the other K3 routes, each held against the plain twin at its
@@ -503,7 +797,7 @@ def main() -> int:
     # the two-level cull (>= 16 clusters), which no ported reference scene
     # reaches: 1500 spheres on the ground, K3 vs plain twin
     sF = _field_scene(1500, 4)
-    tabS = mk.prepare_megakernel(sF, derive_camera(c5), width=320,
+    tabS = mk.prepare_megakernel(sF, derive_camera(c5, device=dev), width=320,
                                  height=c5.image_height, device=dev)
     kS = mk.respawn_pass(tabS, 7, 0, 4, 50)
     pS = mk.respawn_pass_plain(tabS, 7, 0, 4, 50)
@@ -515,27 +809,49 @@ def main() -> int:
     _check(tabS.n_sclusters > 1, "the field scene has no super-clusters")
     _check(eqS, "K3 and its plain twin differ under the two-level cull")
 
+    r9 = _phase9(dev)
+
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
                "flagship_4k": err4k, "field_1500": errS}
     kernels = [dict(name="persist", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/persist.cu",
                     replaces="rustraytrace_tpu/ops/pallas_wavefront.py:382",
-                    launches=counts["persist"], max_abs_err=img_err,
-                    ms=p_ms, plain_ms=p_plain_ms, bound_ms=p_bound,
-                    bound_by=p_by, library_ms=None,
-                    ms_shape=f"{RF} lanes x 8 iterations, flagship",
-                    plain_ms_shape=f"{RF} lanes x 8 iterations, flagship"),
+                    launches=r9["k2_launches"],
+                    launches_by_path={"the_next_week": r9["k2_launches"],
+                                      "flagship": counts["persist"]},
+                    max_abs_err=max(img_err, r9["k2_err"]),
+                    max_abs_err_by_route=dict(flagship=img_err,
+                                              **r9["errs"]),
+                    ms=r9["k2_ms"], plain_ms=r9["k2_plain_ms"],
+                    bound_ms=r9["k2_bound"], bound_by=r9["k2_by"],
+                    library_ms=None, work=r9["k2_work"],
+                    ms_shape=f"{r9['R9']} lanes x {r9['iters9']} "
+                             "iterations, the_next_week",
+                    plain_ms_shape=f"{r9['R9']} lanes x {r9['iters9']} "
+                                   "iterations, the_next_week",
+                    flagship_ms=p_ms, flagship_plain_ms=p_plain_ms,
+                    flagship_bound_ms=p_bound,
+                    flagship_shape=f"{RF} lanes x 8 iterations, flagship"),
                dict(name="megakernel", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/megakernel.cu",
                     replaces="rustraytrace_tpu/ops/pallas_megakernel.py:2087",
                     launches=counts7["megakernel"],
+                    launches_by_path={"book3_cornell_box":
+                                      counts7["megakernel"],
+                                      "the_next_week": 0},
                     max_abs_err=max(k3_errs.values()),
                     max_abs_err_by_route=k3_errs,
                     ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
-                    bound_by=k3_by, library_ms=None,
+                    bound_by=k3_by, library_ms=None, work=_work(work7),
                     ms_shape=f"{R7} lanes x {spp7} spp, book3_cornell_box",
                     plain_ms_shape=f"{R7} lanes x 4 spp, book3_cornell_box",
-                    ms_at_plain_shape=k3_ms4)]
+                    ms_at_plain_shape=k3_ms4,
+                    final_scene_ms=r9["k3f_ms"],
+                    final_scene_bound_ms=r9["k3f_bound"],
+                    final_scene_bound_by=r9["k3f_by"],
+                    final_scene_work=r9["k3f_work"],
+                    final_scene_shape=f"{r9['R9']} lanes x 2 spp, "
+                                      "the_next_week")]
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
           f"started", flush=True)
     print(json.dumps({"off_path_kernels": [k1_entry]}))

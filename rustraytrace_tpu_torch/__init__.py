@@ -6,12 +6,14 @@ C++ kernel written for Hopper (``csrc/``, built with ``nvcc`` at first use).
 The JAX package stays the reference each module is tested against; this
 package never imports it, nor JAX.
 
-Ported so far (the flagship path): config and camera, the scene compiler,
-the two Book-1 scenes, the SAH clustering and table packing, the
-persist path tracer for sphere scenes with solid albedos (kernel K2(a),
-``csrc/persist.cu``) with its between-launch ray sort, the closest-hit
-kernel K1 (``csrc/sphere_hit.cu``), and the render pass loop.  Entry
-points take ``device=``.
+Ported so far: config and camera, the scene compiler, the whole scene
+catalog, the SAH clustering and table packing, the closest-hit kernel K1
+(``csrc/sphere_hit.cu``), the persist path tracer K2 (``csrc/persist.cu``)
+with its between-launch ray sort and per-tile launch bounds, the respawn
+megakernel K3 (``csrc/megakernel.cu``), their shared device code for
+spheres, boxes, quads, constant media and textures (``csrc/path.cuh``),
+and the render pass loop.  The entry points run on the card
+(``device="cuda"``) unless the caller asks for ``device="cpu"``.
 """
 
 from .config import CameraParams, RenderConfig, derive_camera

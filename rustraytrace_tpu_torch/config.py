@@ -69,11 +69,14 @@ class CameraParams:
     bg_mode: int
     image_width: int
     image_height: int
+    # every value above, on the host: what the prepared-table cache keys on
+    key: tuple
 
 
-def derive_camera(cfg: RenderConfig, device="cpu",
+def derive_camera(cfg: RenderConfig, device,
                   dtype=torch.float32) -> CameraParams:
-    """Viewport basis and pixel grid; reference camera.rs:102-150."""
+    """Viewport basis and pixel grid (reference camera.rs:102-150), as
+    tensors on ``device``."""
     width = cfg.image_width
     height = cfg.image_height
 
@@ -116,6 +119,8 @@ def derive_camera(cfg: RenderConfig, device="cpu",
         return torch.as_tensor(np.asarray(x, np.float32), dtype=dtype,
                                device=device)
 
+    vecs = (lookfrom, pixel00, pixel_delta_u, pixel_delta_v, defocus_disk_u,
+            defocus_disk_v, background)
     return CameraParams(
         center=dev(lookfrom),
         pixel00=dev(pixel00),
@@ -128,4 +133,6 @@ def derive_camera(cfg: RenderConfig, device="cpu",
         bg_mode=bg_mode,
         image_width=width,
         image_height=height,
+        key=(tuple(np.asarray(vecs, np.float32).reshape(-1).tolist()),
+             cfg.defocus_angle > 0.0, bg_mode, width, height),
     )

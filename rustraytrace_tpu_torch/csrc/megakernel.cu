@@ -25,7 +25,7 @@
 
 namespace {
 
-template <bool MIS, bool COUNT>
+template <bool MIS, bool BOOK2, bool COUNT>
 __global__ void respawn_kernel(float* __restrict__ out, int R,
                                rtt::Params P) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -36,30 +36,38 @@ __global__ void respawn_kernel(float* __restrict__ out, int R,
   const float spp_f = (float)P.spp;
   rtt::Work<COUNT> W;
   while (rtt::lane_has_work(L, spp_f))
-    rtt::lane_step<MIS>(L, P, (uint32_t)i, px, py, W);
+    rtt::lane_step<MIS, BOOK2>(L, P, (uint32_t)i, px, py, W);
   out[3 * (size_t)i] = L.sx;
   out[3 * (size_t)i + 1] = L.sy;
   out[3 * (size_t)i + 2] = L.sz;
   W.flush(P);
 }
 
+template <bool MIS, bool BOOK2>
+static void launch(float* out, int R, const rtt::Params& P, cudaStream_t st) {
+  const int block = 128;
+  const int grid = (R + block - 1) / block;
+  if (P.work != nullptr)
+    respawn_kernel<MIS, BOOK2, true><<<grid, block, 0, st>>>(out, R, P);
+  else
+    respawn_kernel<MIS, BOOK2, false><<<grid, block, 0, st>>>(out, R, P);
+}
+
 }  // namespace
 
 extern "C" int rtt_respawn_pass(float* out, int R, const rtt::Params* params,
-                                int mis, void* stream) {
+                                int mis, int book2, void* stream) {
   if (R > 0) {
-    const int block = 128;
-    const int grid = (R + block - 1) / block;
     const cudaStream_t st = (cudaStream_t)stream;
-    const bool count = params->work != nullptr;
-    if (mis && count)
-      respawn_kernel<true, true><<<grid, block, 0, st>>>(out, R, *params);
+    const rtt::Params& P = *params;
+    if (mis && book2)
+      launch<true, true>(out, R, P, st);
     else if (mis)
-      respawn_kernel<true, false><<<grid, block, 0, st>>>(out, R, *params);
-    else if (count)
-      respawn_kernel<false, true><<<grid, block, 0, st>>>(out, R, *params);
+      launch<true, false>(out, R, P, st);
+    else if (book2)
+      launch<false, true>(out, R, P, st);
     else
-      respawn_kernel<false, false><<<grid, block, 0, st>>>(out, R, *params);
+      launch<false, false>(out, R, P, st);
   }
   return (int)cudaGetLastError();
 }

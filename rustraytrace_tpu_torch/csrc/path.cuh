@@ -1,14 +1,24 @@
 // The path tracer's device side, shared by the persist kernel (K2,
 // persist.cu) and the respawn megakernel (K3, megakernel.cu): closest hit
-// over spheres (SAH cluster cull) then quads, one bounce of the path or the
-// NEE/MIS estimator, the camera spawn, and the per-lane step {bank a
-// finished path, respawn the next camera ray, one bounce}.
+// over spheres (SAH cluster cull), then boxes (box-cluster cull), then
+// quads, then constant media; one bounce of the path or the NEE/MIS
+// estimator; the camera spawn; and the per-lane step {bank a finished path,
+// respawn the next camera ray, one bounce}.
 //
 // Counterparts: intersect / bounce_body / spawn_rays / pbody of _make_kernel,
-// rustraytrace_tpu/ops/pallas_megakernel.py:883-1991.  Plain twin:
+// rustraytrace_tpu/ops/pallas_megakernel.py:714-1991.  Plain twin:
 // ops/wavefront.py (_intersect_plain, _bounce_plain, spawn_rays,
 // _iteration_plain); every expression is written in the twin's order (see
 // rtt_common.cuh), so kernel and twin are bitwise equal.
+//
+// Every function is templated on BOOK2: the Book-2 features (motion blur,
+// boxes, constant media, checker, Perlin-marble and image textures) are
+// compiled only into the BOOK2 instances, so the Book-1 and Book-3 scenes
+// run the code they ran before those features existed.  Image texels are
+// fetched in the kernel (a global load), and the texel multiplies the
+// albedo before Russian roulette, as the JAX package's XLA trace_path does;
+// its Pallas kernel deferred the texel past the roulette (same estimator,
+// other variance).
 //
 // Random numbers are Philox keyed by (slot, absolute sample index, bounce,
 // stream): a lane's path does not depend on the launch, the sorted position
@@ -21,8 +31,19 @@ namespace rtt {
 
 // joined sphere table columns (ops/megakernel.py J_*)
 constexpr int J_COLS = 24;
-constexpr int J_CX = 0, J_INVR = 7, J_KIND = 8, J_AR = 9, J_FUZZ = 12,
-              J_IOR = 13;
+constexpr int J_CX = 0, J_VX = 4, J_INVR = 7, J_KIND = 8, J_AR = 9,
+              J_FUZZ = 12, J_IOR = 13, J_TEXK = 14, J_C2R = 15, J_INVS = 18,
+              J_IMG = 19;
+// quad texture columns (ops/hit.py Q_*)
+constexpr int Q_TEXK = 22, Q_C2R = 23, Q_INVS = 26, Q_IMG = 27;
+// box winner attributes (ops/megakernel.py BA_*)
+constexpr int BA_COLS = 12;
+constexpr int BA_KIND = 0, BA_AR = 1, BA_FUZZ = 4, BA_IOR = 5, BA_TEXK = 6,
+              BA_C2R = 7, BA_INVS = 10;
+// constant-media table columns (ops/megakernel.py M_*)
+constexpr int M_COLS = 24;
+constexpr int M_KIND = 0, M_CX = 1, M_R2 = 4, M_NID = 5, M_AR = 6,
+              M_COS = 9, M_SIN = 10, M_LOX = 11, M_HIX = 14;
 // light table columns (ops/megakernel.py L_*)
 constexpr int L_COLS = 24;
 constexpr int L_KIND = 0, L_QX = 1, L_UX = 4, L_VX = 7, L_WX = 10,
@@ -30,11 +51,14 @@ constexpr int L_KIND = 0, L_QX = 1, L_UX = 4, L_VX = 7, L_WX = 10,
 constexpr int BLK = 32;  // screen swizzle block
 constexpr int RR_START_BOUNCE = 5;
 constexpr float INV_PI = 0.3183098861837907f;
+// sphere UV constants as the JAX XLA sphere_uv rounds them to f32
+constexpr float UV_PI = 3.1415927f, UV_TWO_PI = 6.2831855f;
 
 // Everything a launch reads besides the lane state.  The layout is mirrored
 // by ops/_cuda.py PathParams (checked against rtt_params_size at load).
 struct Params {
   const float4* geom;  // [N] cx, cy, cz, r2 in cluster order
+  const float4* gvel;  // [N] vx, vy, vz, 0 (read for moving spheres)
   const float* tab;    // [N, 24] joined sphere + material table
   int n_rows;
   const float* clb;  // [C, 8] cluster lo3, hi3
@@ -43,18 +67,32 @@ struct Params {
   const float* sclb;  // [S, 8] super-cluster bounds
   const int* scls;    // [S+1] super-cluster starts (in clusters)
   int n_sclusters;
+  int n_ssc_static;  // leading super-clusters of static spheres (split)
   int unroll;
   const float* qtab;  // [Q, 32] quad frames + materials
   int n_quads;
   const float* ltab;  // [L, 24] NEE light table
   int n_lights;
+  const float* btab;  // [NB, 8] box lo3, hi3 in box-cluster order
+  const float* batt;  // [NB, 12] box winner attributes
+  const float* bclb;  // [CB, 8] box-cluster bounds
+  const int* bcls;    // [CB+1] box-cluster starts / b_unroll
+  int n_boxes, n_bclusters, b_unroll;
+  const float* mtab;  // [M, 24] constant media
+  int n_media;
+  const int* perm;       // [3, 256] Perlin permutations
+  const float* randvec;  // [256, 3] Perlin lattice vectors
+  const float* texels;   // [T, 3] image texels, image-major
+  const int* img_meta;   // [NI, 3] base, w, h of each image
+  int n_images;
   const float* cam;  // [20] center, pixel00, du, dv, disk u, v
   const float* bg;   // [4] flat background
   int sky_bg, defocus, width, height, spp, max_depth, stratified, sqrt_spp;
+  int moving, has_checker, has_noise, has_image;
   uint32_t k0, k1;
   int sample_offset;
-  // [3] work counters (bounces, sphere rows tested, boxes tested), read by
-  // the COUNT instances only; null otherwise
+  // [7] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
+  // instances only; null otherwise
   unsigned long long* work;
 };
 
@@ -64,54 +102,69 @@ struct Params {
 // where a caller passes Params::work.
 template <bool COUNT>
 struct Work {
-  uint32_t bounces = 0, spheres = 0, boxes = 0;
-  __device__ __forceinline__ void bounce() {
-    if constexpr (COUNT) ++bounces;
+  uint32_t n[7] = {0, 0, 0, 0, 0, 0, 0};
+  __device__ __forceinline__ void add(int k, int v) {
+    if constexpr (COUNT) n[k] += (uint32_t)v;
   }
-  __device__ __forceinline__ void sphere_rows(int n) {
-    if constexpr (COUNT) spheres += (uint32_t)n;
-  }
-  __device__ __forceinline__ void box() {
-    if constexpr (COUNT) ++boxes;
-  }
+  __device__ __forceinline__ void bounce() { add(0, 1); }
+  __device__ __forceinline__ void sphere_rows(int v) { add(1, v); }
+  __device__ __forceinline__ void box() { add(2, 1); }
+  __device__ __forceinline__ void box_rows(int v) { add(3, v); }
+  __device__ __forceinline__ void medium() { add(4, 1); }
+  __device__ __forceinline__ void noise() { add(5, 1); }
+  __device__ __forceinline__ void texel() { add(6, 1); }
   __device__ __forceinline__ void flush(const Params& P) const {
     if constexpr (COUNT) {
-      atomicAdd(P.work, (unsigned long long)bounces);
-      atomicAdd(P.work + 1, (unsigned long long)spheres);
-      atomicAdd(P.work + 2, (unsigned long long)boxes);
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
+        atomicAdd(P.work + k, (unsigned long long)n[k]);
     }
   }
 };
 
-// slab test of an AABB [lo3, hi3] against the ray, entry before best t
-__device__ __forceinline__ bool box_hit(const float* b, float ox, float oy,
-                                        float oz, float ivx, float ivy,
-                                        float ivz, float bt) {
+// slab entry and exit of an AABB b = [lo3, hi3]
+__device__ __forceinline__ void slab(const float* b, float ox, float oy,
+                                     float oz, float ivx, float ivy,
+                                     float ivz, float* t1, float* t2) {
   const float tx1 = (b[0] - ox) * ivx;
   const float tx2 = (b[3] - ox) * ivx;
   const float ty1 = (b[1] - oy) * ivy;
   const float ty2 = (b[4] - oy) * ivy;
   const float tz1 = (b[2] - oz) * ivz;
   const float tz2 = (b[5] - oz) * ivz;
-  const float t1 = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
-                         fminf(tz1, tz2));
-  const float t2 = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                         fmaxf(tz1, tz2));
+  *t1 = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  *t2 = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+}
+
+// slab test of an AABB [lo3, hi3] against the ray, entry before best t
+__device__ __forceinline__ bool box_hit(const float* b, float ox, float oy,
+                                        float oz, float ivx, float ivy,
+                                        float ivz, float bt) {
+  float t1, t2;
+  slab(b, ox, oy, oz, ivx, ivy, ivz, &t1, &t2);
   return (t1 <= t2) && (t2 > T_MIN) && (t1 < bt);
 }
 
-template <class WorkT>
+template <bool MV, class WorkT>
 __device__ __forceinline__ void scan_spheres(const Params& P, int lo, int hi,
-                                             float ox, float oy, float oz,
-                                             float dx, float dy, float dz,
-                                             float a, float inv_a, float* bt,
-                                             int* bi, WorkT& W) {
+                                             float tm, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, float a, float inv_a,
+                                             float* bt, int* bi, WorkT& W) {
   W.sphere_rows(hi - lo);
   for (int s = lo; s < hi; ++s) {
     const float4 g = P.geom[s];
+    float cx = g.x, cy = g.y, cz = g.z;
+    if constexpr (MV) {
+      // center at the ray's time (sphere.rs:30-35)
+      const float4 v = P.gvel[s];
+      cx = cx + tm * v.x;
+      cy = cy + tm * v.y;
+      cz = cz + tm * v.z;
+    }
     bool ok;
-    const float root = sphere_root(g.x, g.y, g.z, g.w, ox, oy, oz, dx, dy,
-                                   dz, a, inv_a, &ok);
+    const float root = sphere_root(cx, cy, cz, g.w, ox, oy, oz, dx, dy, dz,
+                                   a, inv_a, &ok);
     if (ok && root < *bt) {
       *bt = root;
       *bi = s;
@@ -119,56 +172,132 @@ __device__ __forceinline__ void scan_spheres(const Params& P, int lo, int hi,
   }
 }
 
+// one SAH cluster's sphere rows, with or without the motion reads
+template <bool BOOK2, class WorkT>
+__device__ __forceinline__ void scan_cluster(const Params& P, int c, bool mv,
+                                             float tm, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, float a, float inv_a,
+                                             float* bt, int* bi, WorkT& W) {
+  const int lo = P.cls[c] * P.unroll, hi = P.cls[c + 1] * P.unroll;
+  if (BOOK2 && mv)
+    scan_spheres<true>(P, lo, hi, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bt,
+                       bi, W);
+  else
+    scan_spheres<false>(P, lo, hi, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bt,
+                        bi, W);
+}
+
+// 1 / d with |d| raised to 1e-20, its sign kept (slab tests)
 __device__ __forceinline__ float safe_inv(float d) {
   const float sg = d < 0.0f ? -1e-20f : 1e-20f;
   return 1.0f / (fabsf(d) < 1e-20f ? sg : d);
 }
 
+// box primitives [lo, hi) of the box table (pallas_megakernel.py:843-871):
+// the entry face if its t is in (T_MIN, T_MAX), else the exit face
+template <class WorkT>
+__device__ __forceinline__ void scan_boxes(const Params& P, int lo, int hi,
+                                           float ox, float oy, float oz,
+                                           float ivx, float ivy, float ivz,
+                                           float* bt, int* bi, WorkT& W) {
+  W.box_rows(hi - lo);
+  for (int k = lo; k < hi; ++k) {
+    float t1, t2;
+    slab(P.btab + 8 * k, ox, oy, oz, ivx, ivy, ivz, &t1, &t2);
+    const bool near_ok = t1 > T_MIN && t1 < T_MAX;
+    const float root = near_ok ? t1 : t2;
+    if (t1 < t2 && root > T_MIN && root < T_MAX && root < *bt) {
+      *bt = root;
+      *bi = k;
+    }
+  }
+}
+
 struct Hit {
   float t;  // best t, or BIG on a miss
   int si;   // sphere winner row, or -1
-  int qi;   // quad winner row, or -1 (a quad winner overrides si)
+  int qi;   // quad winner row, or -1
+  int bi;   // box winner row, or -1 (BOOK2 only)
+  int mi;   // medium winner, or -1 (BOOK2 only)
+  // the final winner is the last class that set its row: medium, quad, box,
+  // then sphere
 };
 
 // Closest hit: spheres first (a per-thread cull over the two-level SAH
-// cluster hierarchy, the box test of pallas_megakernel.py:797), then every
-// quad, each with a strict "<" in table order: a sphere wins a tie with a
-// quad.  The cull is not exactly a full scan: an f32 root can lie past its
-// cluster's box (the ground sphere's, near its surface), and the box test
-// then drops that hit.  The plain twin runs the same cull.
-template <class WorkT>
-__device__ inline Hit intersect(const Params& P, float ox, float oy,
-                                float oz, float dx, float dy, float dz,
-                                float a, float inv_a, WorkT& W) {
+// cluster hierarchy, the box test of pallas_megakernel.py:797), then the
+// boxes (the same cull over box clusters), then every quad, each with a
+// strict "<" in table order, so an earlier class wins a tie; then the
+// constant media in table order, each free flight clipped by the running
+// closest hit (pallas_megakernel.py:1100-1199).  The cull is not exactly a
+// full scan: an f32 root can lie past its cluster's box (the ground
+// sphere's, near its surface), and the box test then drops that hit.  The
+// plain twin runs the same cull.  (s, sample, b) key the media draws.
+template <bool BOOK2, class WorkT>
+__device__ inline Hit intersect(const Params& P, float tm, float ox,
+                                float oy, float oz, float dx, float dy,
+                                float dz, float a, float inv_a, uint32_t s,
+                                uint32_t sample, uint32_t b, WorkT& W) {
   float bt = BIG;
   int bi = -1;
-  const int U = P.unroll;
+  // moving spheres: every cluster of a moving scene, except the leading
+  // static super-clusters of a split one (pallas_megakernel.py:815-827)
+  const bool moving = BOOK2 && P.moving;
+  const bool split =
+      moving && P.n_ssc_static > 0 && P.n_ssc_static < P.n_sclusters;
+  float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
+  if (P.n_clusters > 0 || (BOOK2 && P.n_boxes > 0)) {
+    ivx = safe_inv(dx);
+    ivy = safe_inv(dy);
+    ivz = safe_inv(dz);
+  }
   if (P.n_clusters > 0) {
-    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
     if (P.n_sclusters > 1) {
       for (int sc = 0; sc < P.n_sclusters; ++sc) {
         W.box();
         if (!box_hit(P.sclb + 8 * sc, ox, oy, oz, ivx, ivy, ivz, bt))
           continue;
+        const bool mv = moving && !(split && sc < P.n_ssc_static);
         for (int c = P.scls[sc]; c < P.scls[sc + 1]; ++c) {
           W.box();
           if (!box_hit(P.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt))
             continue;
-          scan_spheres(P, P.cls[c] * U, P.cls[c + 1] * U, ox, oy, oz, dx, dy,
-                       dz, a, inv_a, &bt, &bi, W);
+          scan_cluster<BOOK2>(P, c, mv, tm, ox, oy, oz, dx, dy, dz, a, inv_a,
+                              &bt, &bi, W);
         }
       }
     } else {
       for (int c = 0; c < P.n_clusters; ++c) {
         W.box();
         if (!box_hit(P.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt)) continue;
-        scan_spheres(P, P.cls[c] * U, P.cls[c + 1] * U, ox, oy, oz, dx, dy,
-                     dz, a, inv_a, &bt, &bi, W);
+        scan_cluster<BOOK2>(P, c, moving, tm, ox, oy, oz, dx, dy, dz, a,
+                            inv_a, &bt, &bi, W);
       }
     }
+  } else if (moving) {
+    scan_spheres<true>(P, 0, P.n_rows, tm, ox, oy, oz, dx, dy, dz, a, inv_a,
+                       &bt, &bi, W);
   } else {
-    scan_spheres(P, 0, P.n_rows, ox, oy, oz, dx, dy, dz, a, inv_a, &bt, &bi,
-                 W);
+    scan_spheres<false>(P, 0, P.n_rows, tm, ox, oy, oz, dx, dy, dz, a, inv_a,
+                        &bt, &bi, W);
+  }
+  int boxi = -1;
+  if constexpr (BOOK2) {
+    if (P.n_boxes > 0) {
+      const int U = P.b_unroll;
+      if (P.n_bclusters > 1) {
+        for (int c = 0; c < P.n_bclusters; ++c) {
+          W.box();
+          if (!box_hit(P.bclb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt))
+            continue;
+          scan_boxes(P, P.bcls[c] * U, P.bcls[c + 1] * U, ox, oy, oz, ivx,
+                     ivy, ivz, &bt, &boxi, W);
+        }
+      } else {
+        scan_boxes(P, 0, P.n_boxes, ox, oy, oz, ivx, ivy, ivz, &bt, &boxi,
+                   W);
+      }
+    }
   }
   int qi = -1;
   for (int q = 0; q < P.n_quads; ++q) {
@@ -180,7 +309,62 @@ __device__ inline Hit intersect(const Params& P, float ox, float oy,
       qi = q;
     }
   }
-  return Hit{bt, bi, qi};
+  int mi = -1;
+  if constexpr (BOOK2) {
+    float4 um4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int m = 0; m < P.n_media; ++m) {
+      W.medium();
+      const float* mr = P.mtab + m * M_COLS;
+      float t1, t2;
+      bool in_ok;
+      if (mr[M_KIND] < 0.5f) {
+        // sphere boundary roots over (-inf, inf)
+        const float ocx = mr[M_CX] - ox;
+        const float ocy = mr[M_CX + 1] - oy;
+        const float ocz = mr[M_CX + 2] - oz;
+        const float hh = dx * ocx + dy * ocy + dz * ocz;
+        const float cc = ocx * ocx + ocy * ocy + ocz * ocz - mr[M_R2];
+        const float disc = hh * hh - a * cc;
+        const float sqd = sqrtf(fmaxf(disc, 0.0f));
+        t1 = (hh - sqd) * inv_a;
+        t2 = (hh + sqd) * inv_a;
+        in_ok = disc > 0.0f;
+      } else {
+        // oriented box: world -> local (offset, then rotate by -theta)
+        const float cth = mr[M_COS], sth = mr[M_SIN];
+        const float rox = ox - mr[M_CX];
+        const float roz = oz - mr[M_CX + 2];
+        const float lo3[3] = {cth * rox - sth * roz, oy - mr[M_CX + 1],
+                              sth * rox + cth * roz};
+        const float ilx = safe_inv(cth * dx - sth * dz);
+        const float ily = safe_inv(dy);
+        const float ilz = safe_inv(sth * dx + cth * dz);
+        slab(mr + M_LOX, lo3[0], lo3[1], lo3[2], ilx, ily, ilz, &t1, &t2);
+        in_ok = t1 < t2;
+      }
+      float t1c = fmaxf(t1, T_MIN);
+      const float t2c = fminf(t2, bt);
+      bool ok = in_ok && t1c < t2c;
+      t1c = fmaxf(t1c, 0.0f);
+      const float inv_len_m = 1.0f / sqrtf(a);
+      const float dlen = a * inv_len_m;
+      const float dist_inside = (t2c - t1c) * dlen;
+      if ((m & 3) == 0)
+        um4 = uniforms4(s, sample, b, STREAM_MEDIA + (uint32_t)(m >> 2),
+                        P.k0, P.k1);
+      const int w = m & 3;
+      const float um = w == 0 ? um4.x : (w == 1 ? um4.y
+                                                : (w == 2 ? um4.z : um4.w));
+      const float hitd = mr[M_NID] * logf(fmaxf(um, 1e-12f));
+      ok = ok && hitd <= dist_inside;
+      const float t_med = t1c + hitd * inv_len_m;
+      if (ok && t_med < bt) {
+        bt = t_med;
+        mi = m;
+      }
+    }
+  }
+  return Hit{bt, bi, qi, boxi, mi};
 }
 
 struct Lane {
@@ -208,11 +392,117 @@ __device__ __forceinline__ void onb(float wx, float wy, float wz, float* ux,
   *uz = wx * *vy - wy * *vx;
 }
 
+// ---- Book-2 textures (texture.rs; pallas_megakernel.py:1236-1325) ----
+
+// Perlin lattice noise at q (perlin.rs:25-98): trilinear Hermite-smoothed
+// blend of the 8 corner gradients, corner indices xor-combined from the three
+// permutations with "& 255" wrapping (two's complement for negative floors)
+__device__ __forceinline__ float noise_at(const Params& P, float qx, float qy,
+                                          float qz) {
+  const float fx = floorf(qx), fy = floorf(qy), fz = floorf(qz);
+  const float ux = qx - fx, uy = qy - fy, uz = qz - fz;
+  const int iq = (int)fx, jq = (int)fy, kq = (int)fz;
+  const float sx = ux * ux * (3.0f - 2.0f * ux);
+  const float sy = uy * uy * (3.0f - 2.0f * uy);
+  const float sz = uz * uz * (3.0f - 2.0f * uz);
+  float acc = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    const int pi = P.perm[(iq + di) & 255];
+    const float wxf = di ? sx : (1.0f - sx);
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+      const int pj = P.perm[256 + ((jq + dj) & 255)];
+      const float wyf = dj ? sy : (1.0f - sy);
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const int pk = P.perm[512 + ((kq + dk) & 255)];
+        const float* c = P.randvec + 3 * (pi ^ pj ^ pk);
+        const float dot = c[0] * (ux - (float)di) + c[1] * (uy - (float)dj) +
+                          c[2] * (uz - (float)dk);
+        const float wzf = dk ? sz : (1.0f - sz);
+        acc = acc + wxf * wyf * wzf * dot;
+      }
+    }
+  }
+  return acc;
+}
+
+// marble: 0.5 (1 + sin(scale z + 10 turb(p, 7))) (texture.rs:122-126,
+// perlin.rs:50-62)
+template <class WorkT>
+__device__ float marble(const Params& P, float scale, float px, float py,
+                        float pz, WorkT& W) {
+  float tacc = 0.0f, wgt = 1.0f, qx = px, qy = py, qz = pz;
+  for (int o = 0; o < 7; ++o) {
+    W.noise();
+    tacc = tacc + wgt * noise_at(P, qx, qy, qz);
+    wgt = wgt * 0.5f;
+    qx = qx * 2.0f;
+    qy = qy * 2.0f;
+    qz = qz * 2.0f;
+  }
+  return 0.5f * (1.0f + sinf(scale * pz + 10.0f * fabsf(tacc)));
+}
+
+// sphere (u, v) from the pre-flip outward normal, with the pole guards of
+// the XLA sphere_uv (ops/intersect.py:309-328; sphere.rs:47-53)
+__device__ __forceinline__ void sphere_uv(float owx, float owy, float owz,
+                                          float* u, float* v) {
+  const float y = fminf(fmaxf(-owy, -1.0f), 1.0f);
+  const bool safe = fabsf(y) < 0.999999f;
+  float theta = acosf(safe ? y : 0.0f);
+  theta = safe ? theta : (y > 0.0f ? 0.0f : UV_PI);
+  const bool deg = fabsf(owx) < 1e-12f && fabsf(owz) < 1e-12f;
+  const float phi = atan2f(deg ? 0.0f : -owz, deg ? 1.0f : owx) + UV_PI;
+  *u = phi / UV_TWO_PI;
+  *v = theta / UV_PI;
+}
+
+// a quad's (u, v): its planar coordinates alpha, beta at the hit, in the
+// order of quad_hit (quad.rs:84-86)
+__device__ __forceinline__ void quad_uv(const float* q, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float* u, float* v) {
+  const float nqx = q[Q_NX], nqy = q[Q_NX + 1], nqz = q[Q_NX + 2];
+  const float denom = dx * nqx + dy * nqy + dz * nqz;
+  const float safe = fabsf(denom) < 1e-8f ? 1.0f : denom;
+  const float tq = (q[Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe;
+  const float relx = ox + tq * dx - q[Q_QX];
+  const float rely = oy + tq * dy - q[Q_QX + 1];
+  const float relz = oz + tq * dz - q[Q_QX + 2];
+  const float ux = q[Q_UX], uy = q[Q_UX + 1], uz = q[Q_UX + 2];
+  const float vx = q[Q_VX], vy = q[Q_VX + 1], vz = q[Q_VX + 2];
+  const float wx = q[Q_WX], wy = q[Q_WX + 1], wz = q[Q_WX + 2];
+  *u = wx * (rely * vz - relz * vy) + wy * (relz * vx - relx * vz) +
+       wz * (relx * vy - rely * vx);
+  *v = wx * (uy * relz - uz * rely) + wy * (uz * relx - ux * relz) +
+       wz * (ux * rely - uy * relx);
+}
+
+// nearest texel of image `img` at clamped (u, v), v flipped
+// (texture.rs:89-109; ops/textures.py image_texel): a global load
+__device__ __forceinline__ void image_texel(const Params& P, float img,
+                                            float u, float v, float* r,
+                                            float* g, float* b) {
+  const int k = min(max((int)img, 0), P.n_images - 1);
+  const int base = P.img_meta[3 * k], w = P.img_meta[3 * k + 1],
+            h = P.img_meta[3 * k + 2];
+  const float uc = fminf(fmaxf(u, 0.0f), 1.0f);
+  const float vc = 1.0f - fminf(fmaxf(v, 0.0f), 1.0f);
+  const int i = min((int)(uc * (float)w), w - 1);
+  const int j = min((int)(vc * (float)h), h - 1);
+  const float* tx = P.texels + 3 * ((size_t)base + (size_t)j * w + i);
+  *r = tx[0];
+  *g = tx[1];
+  *b = tx[2];
+}
+
 // One bounce of a live lane (bounce_body, pallas_megakernel.py:1202-1771):
 // the path integrator, or with MIS the book-3 NEE/MIS estimator
 // (the_rest_of_your_life/camera.rs:184-254) without the isotropic branch,
 // which comes with media.  `s` and `sample` key the draws.
-template <bool MIS, class WorkT>
+template <bool MIS, bool BOOK2, class WorkT>
 __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
                        WorkT& W) {
   const float ox = L.ox, oy = L.oy, oz = L.oz;
@@ -226,12 +516,32 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
 
   const float a = dx * dx + dy * dy + dz * dz;
   const float inv_a = 1.0f / a;
-  const Hit H = intersect(P, ox, oy, oz, dx, dy, dz, a, inv_a, W);
+  const Hit H = intersect<BOOK2>(P, L.tm, ox, oy, oz, dx, dy, dz, a, inv_a, s,
+                                 sample, (uint32_t)b, W);
   const float t = H.t;
   const bool hit = t < BIG;
-  const bool qwin = H.qi >= 0;
+  // the final winner (see Hit)
+  const bool mwin = BOOK2 && H.mi >= 0;
+  const bool qwin = !mwin && H.qi >= 0;
+  const bool bwin = BOOK2 && !mwin && !qwin && H.bi >= 0;
   float kind, car, cag, cab, fz, io, owx, owy, owz;
-  if (qwin) {
+  // texture of the winner (BOOK2): kind, second color, scale, image
+  float tk = 0.0f, c2r = 0.0f, c2g = 0.0f, c2b = 0.0f, ivs = 0.0f,
+        img = 0.0f;
+  if (mwin) {
+    // a medium scatters isotropically with a fixed normal
+    // (constant_medium.rs:70-78); fuzz and ior are never read for it
+    const float* mr = P.mtab + H.mi * M_COLS;
+    kind = 4.0f;
+    car = mr[M_AR];
+    cag = mr[M_AR + 1];
+    cab = mr[M_AR + 2];
+    fz = 0.0f;
+    io = 1.0f;
+    owx = 1.0f;
+    owy = 0.0f;
+    owz = 0.0f;
+  } else if (qwin) {
     // a quad's outward normal is its unit plane normal
     const float* q = P.qtab + H.qi * Q_COLS;
     kind = q[Q_KIND];
@@ -243,6 +553,53 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
     owx = q[Q_NX];
     owy = q[Q_NX + 1];
     owz = q[Q_NX + 2];
+    if constexpr (BOOK2) {
+      tk = q[Q_TEXK];
+      c2r = q[Q_C2R];
+      c2g = q[Q_C2R + 1];
+      c2b = q[Q_C2R + 2];
+      ivs = q[Q_INVS];
+      img = q[Q_IMG];
+    }
+  } else if (bwin) {
+    // the box face the ray enters, or leaves from inside: entry -> the
+    // last slab entry, exit -> the first slab exit, with the >= / <= tie
+    // breaks of pallas_megakernel.py:996-1036
+    const float* at = P.batt + H.bi * BA_COLS;
+    const float* bb = P.btab + 8 * H.bi;
+    kind = at[BA_KIND];
+    car = at[BA_AR];
+    cag = at[BA_AR + 1];
+    cab = at[BA_AR + 2];
+    fz = at[BA_FUZZ];
+    io = at[BA_IOR];
+    tk = at[BA_TEXK];
+    c2r = at[BA_C2R];
+    c2g = at[BA_C2R + 1];
+    c2b = at[BA_C2R + 2];
+    ivs = at[BA_INVS];
+    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+    const float tx1 = (bb[0] - ox) * ivx;
+    const float tx2 = (bb[3] - ox) * ivx;
+    const float ty1 = (bb[1] - oy) * ivy;
+    const float ty2 = (bb[4] - oy) * ivy;
+    const float tz1 = (bb[2] - oz) * ivz;
+    const float tz2 = (bb[5] - oz) * ivz;
+    const float txn = fminf(tx1, tx2), txf = fmaxf(tx1, tx2);
+    const float tyn = fminf(ty1, ty2), tyf = fmaxf(ty1, ty2);
+    const float tzn = fminf(tz1, tz2), tzf = fmaxf(tz1, tz2);
+    const float t1b = fmaxf(fmaxf(txn, tyn), tzn);
+    const bool entry = t1b > T_MIN && t1b < T_MAX;
+    const bool ex_ = txn >= tyn && txn >= tzn;
+    const bool ey_ = !ex_ && tyn >= tzn;
+    const bool xx_ = txf <= tyf && txf <= tzf;
+    const bool xy_ = !xx_ && tyf <= tzf;
+    const bool usex = (entry && ex_) || (!entry && xx_);
+    const bool usey = (entry && ey_) || (!entry && xy_);
+    const float s_e = entry ? -1.0f : 1.0f;
+    owx = usex ? s_e * (dx >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+    owy = usey ? s_e * (dy >= 0.0f ? 1.0f : -1.0f) : 0.0f;
+    owz = (usex || usey) ? 0.0f : s_e * (dz >= 0.0f ? 1.0f : -1.0f);
   } else {
     const float* row = P.tab + (hit ? H.si : 0) * J_COLS;
     kind = hit ? row[J_KIND] : 0.0f;
@@ -252,9 +609,23 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
     fz = row[J_FUZZ];
     io = row[J_IOR];
     const float invr = row[J_INVR];
-    owx = hit ? (t * dx - (row[J_CX] - ox)) * invr : 0.0f;
-    owy = hit ? (t * dy - (row[J_CX + 1] - oy)) * invr : 0.0f;
-    owz = hit ? (t * dz - (row[J_CX + 2] - oz)) * invr : 1.0f;
+    float cxw = row[J_CX], cyw = row[J_CX + 1], czw = row[J_CX + 2];
+    if (BOOK2 && P.moving) {
+      cxw = cxw + L.tm * row[J_VX];
+      cyw = cyw + L.tm * row[J_VX + 1];
+      czw = czw + L.tm * row[J_VX + 2];
+    }
+    owx = hit ? (t * dx - (cxw - ox)) * invr : 0.0f;
+    owy = hit ? (t * dy - (cyw - oy)) * invr : 0.0f;
+    owz = hit ? (t * dz - (czw - oz)) * invr : 1.0f;
+    if constexpr (BOOK2) {
+      tk = hit ? row[J_TEXK] : 0.0f;
+      c2r = row[J_C2R];
+      c2g = row[J_C2R + 1];
+      c2b = row[J_C2R + 2];
+      ivs = row[J_INVS];
+      img = hit ? row[J_IMG] : 0.0f;
+    }
   }
 
   // background on a miss (renderer.wgsl:233-239)
@@ -278,6 +649,36 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
   const float px_ = ox + t * dx;
   const float py_ = oy + t * dy;
   const float pz_ = oz + t * dz;
+
+  if constexpr (BOOK2) {
+    // the winner's texture replaces its albedo (TEX_CHECKER 1, TEX_IMAGE 2,
+    // TEX_NOISE 3; a medium's is solid)
+    if (P.has_checker && tk == 1.0f) {
+      // 3-D lattice parity: odd cells take the second color
+      const int csum = (int)floorf(ivs * px_) + (int)floorf(ivs * py_) +
+                       (int)floorf(ivs * pz_);
+      if (csum % 2 != 0) {
+        car = c2r;
+        cag = c2g;
+        cab = c2b;
+      }
+    }
+    if (P.has_noise && tk == 3.0f) {
+      const float mv = marble(P, ivs, px_, py_, pz_, W);
+      car = mv;
+      cag = mv;
+      cab = mv;
+    }
+    if (P.has_image && tk == 2.0f) {
+      float tu, tv;
+      if (qwin)
+        quad_uv(P.qtab + H.qi * Q_COLS, ox, oy, oz, dx, dy, dz, &tu, &tv);
+      else
+        sphere_uv(owx, owy, owz, &tu, &tv);
+      W.texel();
+      image_texel(P, img, tu, tv, &car, &cag, &cab);
+    }
+  }
 
   const float d_dot_ow = dx * owx + dy * owy + dz * owz;
   const bool front = d_dot_ow < 0.0f;
@@ -559,6 +960,7 @@ __device__ __forceinline__ void slot_pixel(const Params& P, int s, float* px,
 
 // camera ray of absolute sample `sample` (spawn_rays,
 // pallas_megakernel.py:1817-1854; Camera::get_ray, camera.rs:152-180)
+template <bool BOOK2>
 __device__ __forceinline__ void spawn(Lane& L, const Params& P, uint32_t s,
                                       uint32_t sample, float px, float py) {
   const float4 u = uniforms4(s, sample, 0u, STREAM_CAMERA, P.k0, P.k1);
@@ -591,7 +993,10 @@ __device__ __forceinline__ void spawn(Lane& L, const Params& P, uint32_t s,
     oy0 = cam[1] + ddx * cam[13] + ddy * cam[16];
     oz0 = cam[2] + ddx * cam[14] + ddy * cam[17];
   }
-  L.tm = 0.0f;
+  // the ray's time of a moving scene (the_next_week/camera.rs:160-162)
+  L.tm = (BOOK2 && P.moving)
+             ? uniforms4(s, sample, 0u, STREAM_TIME, P.k0, P.k1).x
+             : 0.0f;
   L.ox = ox0;
   L.oy = oy0;
   L.oz = oz0;
@@ -614,7 +1019,7 @@ __device__ __forceinline__ bool lane_has_work(const Lane& L, float spp_f) {
 // One iteration of a lane (pbody, pallas_megakernel.py:1904-1962): bank a
 // dead unbanked path, respawn an idle lane that has samples left, and run
 // one bounce of a live lane.
-template <bool MIS, class WorkT>
+template <bool MIS, bool BOOK2, class WorkT>
 __device__ __forceinline__ void lane_step(Lane& L, const Params& P,
                                           uint32_t s, float px, float py,
                                           WorkT& W) {
@@ -630,8 +1035,8 @@ __device__ __forceinline__ void lane_step(Lane& L, const Params& P,
   L.ry = L.ry * finz;
   L.rz = L.rz * finz;
   const uint32_t sample = (uint32_t)((int)L.done + P.sample_offset);
-  if (L.mid <= 0.0f && L.done < spp_f) spawn(L, P, s, sample, px, py);
-  if (L.alive > 0.0f) bounce<MIS>(L, P, s, sample, W);
+  if (L.mid <= 0.0f && L.done < spp_f) spawn<BOOK2>(L, P, s, sample, px, py);
+  if (L.alive > 0.0f) bounce<MIS, BOOK2>(L, P, s, sample, W);
 }
 
 }  // namespace rtt

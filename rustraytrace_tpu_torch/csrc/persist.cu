@@ -2,14 +2,18 @@
 //
 // Replaces rustraytrace_tpu/ops/pallas_wavefront.py:_persist_raw (kernel
 // body: the persist branch of _make_kernel, pallas_megakernel.py:1856-1991,
-// with sorted_lanes=True, has_image=False; spheres, quads, sky or flat
-// background, solid albedo; the path or the NEE/MIS integrator, stratified
-// or jittered camera samples).  Plain twin: ops/wavefront.py
-// persist_step_plain.
+// with sorted_lanes=True: spheres, moving or not, boxes, quads, constant
+// media, solid, checker, Perlin and image albedos, sky or flat background;
+// the path or the NEE/MIS integrator, stratified or jittered camera
+// samples; uniform or per-tile launch bounds).  Image texels are fetched in
+// the kernel, so the freeze protocol and its pend records are gone.  Plain
+// twin: ops/wavefront.py persist_step_plain.
 //
 // One thread per lane.  A thread loads its lane's 20 state words and slot,
-// runs up to persist_iters iterations of the shared lane step (path.cuh)
-// while the lane has work, and stores the state back in place.
+// runs up to its bound of iterations of the shared lane step (path.cuh)
+// while the lane has work, and stores the state back in place.  The bound
+// is persist_iters, or with tile_bounds that of the lane's tile of
+// tile_lanes sorted positions (pallas_wavefront.py:692-714).
 //
 // Intersection walks the two-level SAH cluster hierarchy per thread (see
 // path.cuh): the TPU kernel culled a whole 4096-lane tile at once ("any lane
@@ -27,12 +31,15 @@ namespace {
 
 constexpr int N_STATE = 20;
 
-template <bool MIS, bool COUNT>
+template <bool MIS, bool BOOK2, bool COUNT>
 __global__ void persist_kernel(float* __restrict__ st,
                                const int* __restrict__ slot, int R,
-                               rtt::Params P, int persist_iters) {
+                               rtt::Params P, int persist_iters,
+                               const int* __restrict__ tile_bounds,
+                               int tile_lanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
+  const int bound = tile_bounds ? tile_bounds[i / tile_lanes] : persist_iters;
   float v[N_STATE];
 #pragma unroll
   for (int k = 0; k < N_STATE; ++k) v[k] = st[(size_t)k * R + i];
@@ -44,9 +51,9 @@ __global__ void persist_kernel(float* __restrict__ st,
   rtt::slot_pixel(P, s, &px, &py);
   const float spp_f = (float)P.spp;
   rtt::Work<COUNT> W;
-  for (int it = 0; it < persist_iters; ++it) {
+  for (int it = 0; it < bound; ++it) {
     if (!rtt::lane_has_work(L, spp_f)) break;
-    rtt::lane_step<MIS>(L, P, (uint32_t)s, px, py, W);
+    rtt::lane_step<MIS, BOOK2>(L, P, (uint32_t)s, px, py, W);
   }
   const float out[N_STATE] = {L.tm, L.ox,    L.oy, L.oz,   L.dx, L.dy, L.dz,
                               L.ax, L.ay,    L.az, L.rx,   L.ry, L.rz,
@@ -56,32 +63,43 @@ __global__ void persist_kernel(float* __restrict__ st,
   W.flush(P);
 }
 
+template <bool MIS, bool BOOK2>
+static void launch(float* state, const int* slot, int R, const rtt::Params& P,
+                   int persist_iters, const int* tile_bounds, int tile_lanes,
+                   cudaStream_t st) {
+  const int block = 128;
+  const int grid = (R + block - 1) / block;
+  if (P.work != nullptr)
+    persist_kernel<MIS, BOOK2, true><<<grid, block, 0, st>>>(
+        state, slot, R, P, persist_iters, tile_bounds, tile_lanes);
+  else
+    persist_kernel<MIS, BOOK2, false><<<grid, block, 0, st>>>(
+        state, slot, R, P, persist_iters, tile_bounds, tile_lanes);
+}
+
 }  // namespace
 
+// One launch over R lanes; tile_bounds (int32 [R / tile_lanes], or null for
+// a uniform bound of persist_iters) bounds each tile's iterations.
 extern "C" int rtt_persist_step(float* state, const int* slot, int R,
                                 const rtt::Params* params, int persist_iters,
-                                int mis, void* stream) {
+                                int mis, int book2, const int* tile_bounds,
+                                int tile_lanes, void* stream) {
   if (R > 0) {
-    const int block = 128;
-    const int grid = (R + block - 1) / block;
     const cudaStream_t st = (cudaStream_t)stream;
-    const bool count = params->work != nullptr;
-    if (mis && count)
-      persist_kernel<true, true><<<grid, block, 0, st>>>(state, slot, R,
-                                                         *params,
-                                                         persist_iters);
+    const rtt::Params& P = *params;
+    if (mis && book2)
+      launch<true, true>(state, slot, R, P, persist_iters, tile_bounds,
+                         tile_lanes, st);
     else if (mis)
-      persist_kernel<true, false><<<grid, block, 0, st>>>(state, slot, R,
-                                                          *params,
-                                                          persist_iters);
-    else if (count)
-      persist_kernel<false, true><<<grid, block, 0, st>>>(state, slot, R,
-                                                          *params,
-                                                          persist_iters);
+      launch<true, false>(state, slot, R, P, persist_iters, tile_bounds,
+                          tile_lanes, st);
+    else if (book2)
+      launch<false, true>(state, slot, R, P, persist_iters, tile_bounds,
+                          tile_lanes, st);
     else
-      persist_kernel<false, false><<<grid, block, 0, st>>>(state, slot, R,
-                                                           *params,
-                                                           persist_iters);
+      launch<false, false>(state, slot, R, P, persist_iters, tile_bounds,
+                           tile_lanes, st);
   }
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,9 @@ constexpr uint32_t STREAM_BOUNCE = 0u;  // scatter u1, u2, dielectric, RR
 constexpr uint32_t STREAM_CAMERA = 1u;  // jitter x, y, lens r, theta
 constexpr uint32_t STREAM_MIS_A = 2u;   // NEE/MIS u5-u8
 constexpr uint32_t STREAM_MIS_B = 3u;   // NEE/MIS u9, u10 (two unused)
+constexpr uint32_t STREAM_TIME = 4u;    // camera ray time (three unused)
+// medium m's free-flight uniform: word m % 4 of stream STREAM_MEDIA + m / 4
+constexpr uint32_t STREAM_MEDIA = 5u;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {

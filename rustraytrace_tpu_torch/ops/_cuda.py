@@ -48,15 +48,21 @@ class PathParams(ctypes.Structure):
     that the persist kernel and the respawn megakernel read."""
 
     _fields_ = [
-        ("geom", _P), ("tab", _P), ("n_rows", _I),
+        ("geom", _P), ("gvel", _P), ("tab", _P), ("n_rows", _I),
         ("clb", _P), ("cls", _P), ("n_clusters", _I),
-        ("sclb", _P), ("scls", _P), ("n_sclusters", _I), ("unroll", _I),
+        ("sclb", _P), ("scls", _P), ("n_sclusters", _I),
+        ("n_ssc_static", _I), ("unroll", _I),
         ("qtab", _P), ("n_quads", _I), ("ltab", _P), ("n_lights", _I),
+        ("btab", _P), ("batt", _P), ("bclb", _P), ("bcls", _P),
+        ("n_boxes", _I), ("n_bclusters", _I), ("b_unroll", _I),
+        ("mtab", _P), ("n_media", _I), ("perm", _P), ("randvec", _P),
+        ("texels", _P), ("img_meta", _P), ("n_images", _I),
         ("cam", _P), ("bg", _P),
         ("sky_bg", _I), ("defocus", _I), ("width", _I), ("height", _I),
         ("spp", _I), ("max_depth", _I), ("stratified", _I),
-        ("sqrt_spp", _I), ("k0", _U), ("k1", _U), ("sample_offset", _I),
-        ("work", _P),
+        ("sqrt_spp", _I), ("moving", _I), ("has_checker", _I),
+        ("has_noise", _I), ("has_image", _I), ("k0", _U), ("k1", _U),
+        ("sample_offset", _I), ("work", _P),
     ]
 
 
@@ -70,10 +76,12 @@ class Kernel:
 KERNELS = {
     "sphere_hit": Kernel("rtt_sphere_hit", (
         _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P)),
-    # state, slot, R, &PathParams, persist_iters, mis, stream
-    "persist": Kernel("rtt_persist_step", (_P, _P, _I, _P, _I, _I, _P)),
-    # out, R, &PathParams, mis, stream
-    "megakernel": Kernel("rtt_respawn_pass", (_P, _I, _P, _I, _P)),
+    # state, slot, R, &PathParams, persist_iters, mis, book2, tile_bounds,
+    # tile_lanes, stream
+    "persist": Kernel("rtt_persist_step",
+                      (_P, _P, _I, _P, _I, _I, _I, _P, _I, _P)),
+    # out, R, &PathParams, mis, book2, stream
+    "megakernel": Kernel("rtt_respawn_pass", (_P, _I, _P, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

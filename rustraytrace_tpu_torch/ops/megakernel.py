@@ -4,15 +4,21 @@
 
 Host half: ``prepare_megakernel`` builds what the persist kernel
 (``csrc/persist.cu``), the respawn megakernel (``csrc/megakernel.cu``) and
-their plain twins read: the sphere table in SAH cluster order, cluster
-ranges padded to the sphere-loop unroll with unhittable ``r2 = -BIG``
-sentinel rows, the cluster and super-cluster AABBs, the quad table, the NEE
-light table and the camera uniforms.  Row order and values are the JAX
+their plain twins read: the sphere table in SAH cluster order (static and
+moving spheres clustered apart when a moving scene has a static majority),
+cluster ranges padded to the sphere-loop unroll with unhittable
+``r2 = -BIG`` sentinel rows, the cluster and super-cluster AABBs, the
+SAH-clustered box table and its winner attributes, the quad table, the
+constant-media table, the Perlin lattice, the image texels, the NEE light
+table and the camera uniforms.  Row order and values are the JAX
 package's, so the tables are bit-equal to ``prepare_megakernel(...,
 segment=True)`` there.  What is not carried over are the layouts that exist
 for Mosaic: the column-major SMEM geometry table and the 128-lane attribute
-slabs become a row-major ``[N, 4]`` geometry table and a row-major
-``[N, 24]`` attribute table.
+slabs become a row-major ``[N, 4]`` geometry table (plus ``[N, 4]``
+velocities) and row-major attribute tables; the Perlin lattice stays
+``perm [3, 256]`` and ``randvec [256, 3]`` instead of 128-lane halves; the
+image table is flat texels ``[sum h*w, 3]`` with an int32 ``(base, w, h)``
+row per image instead of (8, 128)-tiled RGBA blocks.
 
 Device half: ``respawn_pass`` launches K3, one launch per render pass, in
 which every lane walks its ``spp`` samples back to back; CPU tensors run
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import BG_SKY, CameraParams
-from ..scene import ISOTROPIC, Scene
+from ..scene import ISOTROPIC, TEX_IMAGE, TEX_NOISE, Scene
 from . import _cuda
 from .hit import Q_COLS, pack_quad_table
 from .rng import seed_key
@@ -39,10 +45,18 @@ TILE_ROWS = 32  # rows of 128 lanes the slot space is padded to (JAX tiles)
 TILE_LANES = 128
 _BLK = 32  # screen-space swizzle block (32x32 pixels = 1024 slots)
 
+# the JAX package's loop shapes (pallas_megakernel.py:70-80), kept so the
+# tables are bit-equal; tuned on the TPU, not yet on this card
 SPHERE_UNROLL = 4
+BOX_UNROLL = 4
 SPHERE_MAX_LEAF = 64
 SPHERE_MAX_LEAF_BIG = 32
 SPHERE_BIG_N = 4096
+BOX_MAX_LEAF = 32
+
+# work counters of the kernels' COUNT instances (path_params ``work``)
+WORK_NAMES = ("bounces", "sphere_rows", "cluster_boxes", "box_rows",
+              "media_tests", "noise_evals", "texel_fetches")
 
 # joined sphere+material table columns (pallas_megakernel.py:83-94)
 J_CX, J_CY, J_CZ, J_R2 = 0, 1, 2, 3
@@ -78,15 +92,28 @@ L_COLS = 24
 # at this many quads the JAX package SAH-clusters the quad table
 QUAD_CLUSTER_MIN = 32
 
-# feature -> the persist-kernel sub-slice that carries it
-_SUB_SLICES = {
-    "motion": "K2(b) motion and checker",
-    "checker": "K2(b) motion and checker",
-    "boxes": "K2(c) boxes, media and Perlin",
-    "media": "K2(c) boxes, media and Perlin",
-    "noise": "K2(c) boxes, media and Perlin",
-    "image": "K2(e) image textures",
-}
+# box slab table columns (pallas_megakernel.py:270-272) and the box winner
+# attributes, row-major (the JAX batab rows 0-5 and 12-16)
+B_COLS = 8
+BA_KIND = 0
+BA_AR, BA_AG, BA_AB = 1, 2, 3
+BA_FUZZ = 4
+BA_IOR = 5
+BA_TEXK = 6
+BA_C2R, BA_C2G, BA_C2B = 7, 8, 9
+BA_INVS = 10
+BA_COLS = 12
+
+# constant-media table columns (pallas_megakernel.py:341-349)
+M_KIND = 0  # 0 sphere / 1 oriented box
+M_CX, M_CY, M_CZ = 1, 2, 3  # center (sphere) / offset (box)
+M_R2 = 4
+M_NID = 5  # neg_inv_density
+M_AR, M_AG, M_AB = 6, 7, 8  # isotropic phase albedo
+M_COS, M_SIN = 9, 10
+M_LOX, M_LOY, M_LOZ = 11, 12, 13
+M_HIX, M_HIY, M_HIZ = 14, 15, 16
+M_COLS = 24
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -94,37 +121,171 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def megakernel_eligible(scene: Scene, integrator: str = "path") -> bool:
-    """True when the ported kernels cover the scene: spheres and fewer than
-    QUAD_CLUSTER_MIN quads, sky or flat background, solid albedos, no
-    motion, the path integrator or (with ``mis_lights_ok``) the NEE/MIS
-    one.  Anything else raises ``NotImplementedError`` naming the sub-slice
-    that still has to be ported."""
+    """True when the ported kernels cover the scene: spheres (moving or
+    not), fewer than QUAD_CLUSTER_MIN quads, boxes, constant media, solid,
+    checker, Perlin-marble and image albedos, sky or flat background, the
+    path integrator or (with ``mis_lights_ok``) the NEE/MIS one.  What is
+    not ported raises ``NotImplementedError`` naming it: SAH-clustered
+    quads (>= QUAD_CLUSTER_MIN), the MIS estimator's isotropic branch
+    (media or isotropic materials under 'mis'), and image-textured media,
+    which the JAX package renders only on its XLA path."""
     if integrator not in ("path", "mis"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    for feat in sorted(scene.features):  # any non-solid texture is one
-        if feat in _SUB_SLICES:
-            raise NotImplementedError(
-                f"scene feature {feat!r} needs sub-slice {_SUB_SLICES[feat]},"
-                " not ported yet")
     n_quads = int(_np(scene.quad_mask).sum()) if "quads" in scene.features \
         else 0
     if n_quads >= QUAD_CLUSTER_MIN:
         raise NotImplementedError(
             f"{n_quads} quads (>= {QUAD_CLUSTER_MIN}) need sub-slice K2(c) "
             "quad clusters, not ported yet")
+    kind = _np(scene.mat_kind)
+    feats = scene.features
+    media_mats = np.zeros(0, np.int32)
+    if "media" in feats:
+        media_mats = np.concatenate([
+            _np(scene.msph_mat)[_np(scene.msph_mask) > 0],
+            _np(scene.mbox_mat)[_np(scene.mbox_mask) > 0]])
+    if "image" in feats and np.any(
+            _np(scene.tex_kind)[_np(scene.mat_tex)[media_mats]]
+            == TEX_IMAGE):
+        raise NotImplementedError(
+            "image-textured constant media run only on the JAX package's "
+            "XLA path, not ported yet")
     if integrator == "mis":
         if not mis_lights_ok(scene):
             raise NotImplementedError(
                 "integrator 'mis' runs in-kernel with 1 to 16 NEE lights; "
                 f"the scene has {int(_np(scene.light_mask).sum())}")
-        mats = np.concatenate([
-            _np(scene.sph_mat)[_np(scene.sph_mask) > 0],
-            _np(scene.quad_mat)[_np(scene.quad_mask) > 0]])
-        if np.any(_np(scene.mat_kind)[mats] == ISOTROPIC):
-            raise NotImplementedError(
-                "isotropic materials under 'mis' need sub-slice K2(c) "
-                "media, not ported yet")
+        if np.any(kind == ISOTROPIC):
+            mats = np.concatenate([
+                _np(scene.sph_mat)[_np(scene.sph_mask) > 0],
+                _np(scene.quad_mat)[_np(scene.quad_mask) > 0],
+                _np(scene.box_mat)[_np(scene.box_mask) > 0], media_mats])
+            if np.any(kind[mats] == ISOTROPIC):
+                raise NotImplementedError(
+                    "isotropic materials and media under 'mis' need "
+                    "sub-slice K2(c) media with the MIS isotropic branch, "
+                    "not ported yet")
     return True
+
+
+def pack_box_tables(scene: Scene, max_leaf: int = BOX_MAX_LEAF,
+                    pad_to: int = 1):
+    """(btab [NB, 8] f32, order [NB], cl_start [C+1] i32, cl_bounds [C, 8]
+    f32) of the active boxes in SAH cluster order (pallas_megakernel.py:
+    301-337): each cluster's range padded to a multiple of ``pad_to`` with
+    degenerate lo == hi rows far away, which the strict ``t1 < t2`` slab
+    test rejects."""
+    from ..native import build_aabb_clusters
+
+    mask = _np(scene.box_mask) > 0
+    lo = _np(scene.box_lo).astype(np.float32)[mask]
+    hi = _np(scene.box_hi).astype(np.float32)[mask]
+    n = lo.shape[0]
+    if n == 0:
+        return (np.zeros((1, B_COLS), np.float32), np.zeros(1, np.int32),
+                np.zeros(2, np.int32), np.zeros((1, 8), np.float32))
+    if n > max_leaf:
+        order, cl_start, cl_min, cl_max = build_aabb_clusters(
+            lo, hi, max_leaf=max_leaf)
+    else:
+        order = np.arange(n, dtype=np.int32)
+        cl_start = np.asarray([0, n], np.int32)
+        cl_min = lo.min(axis=0, keepdims=True)
+        cl_max = hi.max(axis=0, keepdims=True)
+    order, cl_start = _pad_cluster_ranges(order, cl_start, pad_to)
+    dead = order < 0
+    lo = np.where(dead[:, None], 1e28, lo[np.maximum(order, 0)])
+    hi = np.where(dead[:, None], 1e28, hi[np.maximum(order, 0)])
+    btab = np.zeros((order.shape[0], B_COLS), np.float32)
+    btab[:, 0:3] = lo
+    btab[:, 3:6] = hi
+    clb = np.concatenate(
+        [cl_min, cl_max, np.zeros((cl_min.shape[0], 2), np.float32)], axis=1)
+    return btab, order, cl_start.astype(np.int32), clb
+
+
+def pack_box_attrs(scene: Scene, order: np.ndarray) -> np.ndarray:
+    """[NB, 12] f32 winner attributes of the box rows in ``order`` (kind,
+    albedo, fuzz, ior, texture kind, second color, scale); padded rows
+    borrow row 0's, which can never win (pallas_megakernel.py:2232-2255)."""
+    bmat = _np(scene.box_mat)[_np(scene.box_mask) > 0][np.maximum(order, 0)]
+    mtex = _np(scene.mat_tex)[bmat]
+    tk = _np(scene.tex_kind)[mtex]
+    att = np.zeros((order.shape[0], BA_COLS), np.float32)
+    att[:, BA_KIND] = _np(scene.mat_kind)[bmat]
+    att[:, BA_AR:BA_AB + 1] = _np(scene.tex_color1)[mtex]
+    att[:, BA_FUZZ] = _np(scene.mat_fuzz)[bmat]
+    att[:, BA_IOR] = _np(scene.mat_ior)[bmat]
+    att[:, BA_TEXK] = tk
+    att[:, BA_C2R:BA_C2B + 1] = _np(scene.tex_color2)[mtex]
+    att[:, BA_INVS] = np.where(tk == TEX_NOISE,
+                               _np(scene.tex_noise_scale)[mtex],
+                               _np(scene.tex_inv_scale)[mtex])
+    return att
+
+
+def pack_media_table(scene: Scene):
+    """([max(M, 1), 24] f32 table, M) of the active constant media, spheres
+    then oriented boxes (pallas_megakernel.py:352-387)."""
+    rows = []
+    tex1 = _np(scene.tex_color1)
+    mat_tex = _np(scene.mat_tex)
+    for k in np.nonzero(_np(scene.msph_mask) > 0)[0]:
+        r = np.zeros(M_COLS, np.float32)
+        r[M_CX:M_CZ + 1] = _np(scene.msph_center)[k]
+        rad = float(_np(scene.msph_radius)[k])
+        r[M_R2] = rad * rad
+        r[M_NID] = float(_np(scene.msph_neg_inv_density)[k])
+        r[M_AR:M_AB + 1] = tex1[int(mat_tex[int(_np(scene.msph_mat)[k])])]
+        rows.append(r)
+    for b in np.nonzero(_np(scene.mbox_mask) > 0)[0]:
+        r = np.zeros(M_COLS, np.float32)
+        r[M_KIND] = 1.0
+        r[M_CX:M_CZ + 1] = _np(scene.mbox_offset)[b]
+        r[M_COS] = float(_np(scene.mbox_cos)[b])
+        r[M_SIN] = float(_np(scene.mbox_sin)[b])
+        r[M_LOX:M_LOZ + 1] = _np(scene.mbox_lo)[b]
+        r[M_HIX:M_HIZ + 1] = _np(scene.mbox_hi)[b]
+        r[M_NID] = float(_np(scene.mbox_neg_inv_density)[b])
+        r[M_AR:M_AB + 1] = tex1[int(mat_tex[int(_np(scene.mbox_mat)[b])])]
+        rows.append(r)
+    n = len(rows)
+    return (np.stack(rows) if rows else np.zeros((1, M_COLS), np.float32)), n
+
+
+def pack_perlin_tables(scene: Scene):
+    """(perm int32 [3, 256], randvec f32 [256, 3]): the Perlin lattice
+    (perlin.rs:25-98) as the scene holds it, row-major."""
+    return (_np(scene.perlin_perm).astype(np.int32),
+            _np(scene.perlin_randvec).astype(np.float32))
+
+
+def pack_image_table(scene: Scene):
+    """(texels f32 [max(T, 1), 3], meta int32 [NI, 3]): every image's
+    h x w texels flattened image-major, and a (base, w, h) row per image
+    for the in-kernel nearest-texel fetch (texture.rs:89-109)."""
+    imgs = _np(scene.images)
+    hw = _np(scene.image_hw)
+    meta, chunks, base = [], [], 0
+    for k in range(imgs.shape[0]):
+        h, w = int(hw[k, 0]), int(hw[k, 1])
+        chunks.append(imgs[k, :h, :w, :].reshape(-1, 3).astype(np.float32))
+        meta.append((base, w, h))
+        base += h * w
+    texels = np.concatenate(chunks) if base else np.zeros((1, 3), np.float32)
+    return texels, np.asarray(meta, np.int32).reshape(-1, 3)
+
+
+def noise_dominant(scene: Scene) -> bool:
+    """Perlin-marble spheres are the scene (book2_perlin_spheres), not one
+    object among many (book2_final_scene): the JAX package then scans its
+    sphere and box loops without unrolling (pallas_megakernel.py:499-515)."""
+    if "noise" not in scene.features:
+        return False
+    noise_mat = _np(scene.tex_kind)[_np(scene.mat_tex)] == TEX_NOISE
+    n_noise = int(np.sum((_np(scene.sph_mask) > 0)
+                         & noise_mat[_np(scene.sph_mat)]))
+    return active_primitive_count(scene) <= 8 * n_noise
 
 
 def pack_light_table(scene: Scene):
@@ -265,6 +426,7 @@ class Prepared:
     """Everything a persist launch reads besides the lane state."""
 
     geom: torch.Tensor  # [N, 4] f32: cx, cy, cz, r2 (cluster order)
+    gvel: torch.Tensor  # [N, 4] f32: vx, vy, vz, 0 (same order)
     tab: torch.Tensor  # [N, 24] f32: joined table, same row order
     clb: torch.Tensor  # [C, 8] f32: cluster lo3, hi3, 0, 0
     cls: torch.Tensor  # [C+1] i32: cluster starts, divided by unroll
@@ -272,14 +434,29 @@ class Prepared:
     scls: torch.Tensor  # [S+1] i32: super-cluster starts (in clusters)
     qtab: torch.Tensor  # [max(Q, 1), 32] f32: quad frames + materials
     ltab: torch.Tensor  # [max(L, 1), 24] f32: NEE lights (zeros unless mis)
+    btab: torch.Tensor  # [NB, 8] f32: box lo3, hi3 (box cluster order)
+    batt: torch.Tensor  # [NB, 12] f32: box winner attributes
+    bclb: torch.Tensor  # [CB, 8] f32: box cluster bounds
+    bcls: torch.Tensor  # [CB+1] i32: box cluster starts, divided by b_unroll
+    mtab: torch.Tensor  # [max(M, 1), 24] f32: constant media
+    perm: torch.Tensor  # [3, 256] i32: Perlin permutations
+    randvec: torch.Tensor  # [256, 3] f32: Perlin lattice vectors
+    texels: torch.Tensor  # [T, 3] f32: image texels, image-major
+    img_meta: torch.Tensor  # [NI, 3] i32: base, w, h of each image
     cam_u: torch.Tensor  # [20] f32: center, pixel00, du, dv, disk u, v, 0, 0
     bg: torch.Tensor  # [4] f32: flat background color, 0
     n_clusters: int
     n_sclusters: int
+    n_ssc_static: int  # leading super-clusters of static spheres (split)
     unroll: int
     n_quads: int  # quad rows the kernels scan (0 without quads)
     n_lights: int  # NEE lights (0 unless mis)
+    n_boxes: int  # box rows (0 without boxes)
+    n_bclusters: int
+    b_unroll: int
+    n_media: int
     rows: int
+    tile_rows: int
     width: int
     height: int
     sky_bg: bool
@@ -287,26 +464,114 @@ class Prepared:
     mis: bool
     stratified: bool
     sqrt_spp: int
+    moving: bool
+    has_checker: bool
+    has_noise: bool
+    has_image: bool
 
     @property
     def n_lanes(self) -> int:
         return self.rows * TILE_LANES
 
+    @property
+    def book2(self) -> bool:
+        """The tables need the kernels' Book-2 instance (motion, boxes,
+        media or a checker, Perlin or image texture)."""
+        return bool(self.moving or self.n_boxes or self.n_media
+                    or self.has_checker or self.has_noise or self.has_image)
 
-def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
-                       height: int, tile_rows: int = TILE_ROWS,
-                       mis: bool = False, stratified: bool = False,
-                       sqrt_spp: int = 0, device="cpu") -> Prepared:
-    """SAH clustering + table packing, the sphere, quad and light path of
-    pallas_megakernel.py:2175-2511 (no static/moving split: motion is not
-    ported)."""
+
+def _cluster_spheres(scene: Scene, max_leaf: int):
+    """(order, cl_start, cl_min, cl_max, s_start, s_min, s_max,
+    n_ssc_static) of the active spheres' SAH clusters over their motion-
+    swept bounds (pallas_megakernel.py:2276-2377).  Clusters are permuted
+    super-cluster-contiguous once there are 16 of them.  A moving scene
+    with at least 64 static spheres clusters its static and moving spheres
+    apart, static first, each under its own super-clusters, and
+    ``n_ssc_static`` counts the static ones; ``s_start`` is None without
+    super-clusters."""
     from ..native import build_aabb_clusters, build_sphere_clusters
 
+    mask = _np(scene.sph_mask) > 0
+    cen = _np(scene.sph_center).astype(np.float32)
+    vel = _np(scene.sph_cvel).astype(np.float32)
+    rad = np.abs(_np(scene.sph_radius).astype(np.float32))
+    rad = np.where(mask, rad, 0.0)
+    cmid = cen + 0.5 * vel
+    rswept = rad + 0.5 * np.linalg.norm(vel, axis=-1)
+
+    def supers(order, cl_start, cl_min, cl_max, force: bool):
+        n_cl = cl_start.shape[0] - 1
+        if n_cl >= 16:
+            sorder, s_start, s_min, s_max = build_aabb_clusters(
+                cl_min, cl_max, max_leaf=16)
+            order = np.concatenate(
+                [order[cl_start[c]:cl_start[c + 1]] for c in sorder])
+            sizes = (cl_start[1:] - cl_start[:-1])[sorder]
+            cl_start = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+            return (order, cl_start, cl_min[sorder], cl_max[sorder],
+                    np.asarray(s_start, np.int32), s_min, s_max)
+        if force:  # identity super-clusters, so the split loop always runs
+            return (order, cl_start, cl_min, cl_max,
+                    np.arange(n_cl + 1, dtype=np.int32), cl_min, cl_max)
+        return order, cl_start, cl_min, cl_max, None, None, None
+
+    moving_p = (np.abs(vel).max(axis=-1) > 0) & mask
+    n_static = int((~moving_p & mask).sum())
+    if "motion" in scene.features and moving_p.any() and n_static >= 64:
+        parts = []
+        for idx in (np.where(~moving_p)[0], np.where(moving_p)[0]):
+            o, cs, mn, mx = build_sphere_clusters(cmid[idx], rswept[idx],
+                                                  max_leaf=max_leaf)
+            parts.append(supers(idx[np.asarray(o)], np.asarray(cs, np.int32),
+                                mn, mx, force=True))
+        (o1, cs1, mn1, mx1, ss1, smn1, smx1), (o2, cs2, mn2, mx2, ss2, smn2,
+                                               smx2) = parts
+        return (np.concatenate([o1, o2]).astype(np.int32),
+                np.concatenate([cs1, cs2[1:] + cs1[-1]]).astype(np.int32),
+                np.concatenate([mn1, mn2]), np.concatenate([mx1, mx2]),
+                np.concatenate([ss1, ss2[1:] + (cs1.shape[0] - 1)]
+                               ).astype(np.int32),
+                np.concatenate([smn1, smn2]), np.concatenate([smx1, smx2]),
+                ss1.shape[0] - 1)
+    order, cl_start, cl_min, cl_max = build_sphere_clusters(
+        cmid, rswept, max_leaf=max_leaf)
+    return (*supers(order, cl_start, cl_min, cl_max, force=False), 0)
+
+
+def _upload(tables: dict, device) -> dict:
+    """{name: (array, np.float32 or np.int32)} -> {name: tensor} in one
+    host-to-device copy: a flat 32-bit buffer (int32 tables copied bit for
+    bit), each table at a 16-byte aligned offset, returned as contiguous
+    views of it."""
+    flat = {k: np.asarray(a, dt).reshape(-1) for k, (a, dt) in tables.items()}
+    offs, off = {}, 0
+    for k, a in flat.items():
+        offs[k] = off
+        off += a.size + (-a.size) % 4
+    host = np.zeros(off, np.float32)
+    for k, a in flat.items():
+        host[offs[k]:offs[k] + a.size] = a.view(np.float32)
+    buf = torch.as_tensor(host, device=device)
+    ibuf = buf.view(torch.int32)
+    return {k: (ibuf if dt == np.int32 else buf)[
+        offs[k]:offs[k] + flat[k].size].view(np.shape(a))
+        for k, (a, dt) in tables.items()}
+
+
+def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
+                       height: int, device, tile_rows: int = TILE_ROWS,
+                       mis: bool = False, stratified: bool = False,
+                       sqrt_spp: int = 0) -> Prepared:
+    """SAH clustering + table packing (pallas_megakernel.py:2175-2511), on
+    ``device``.  The sphere and box loops are unrolled by 4 unless Perlin
+    marble dominates the scene or the integrator is MIS, as in the JAX
+    package."""
     megakernel_eligible(scene, "mis" if mis else "path")
     if stratified and sqrt_spp < 1:
         raise ValueError("stratified sampling needs sqrt_spp >= 1")
-    # the JAX package scans MIS scenes' spheres without unrolling
-    unroll = 1 if mis else SPHERE_UNROLL
+    unroll = 1 if (noise_dominant(scene) or mis) else SPHERE_UNROLL
+    b_unroll = 1 if (noise_dominant(scene) or mis) else BOX_UNROLL
     mask = _np(scene.sph_mask)
     sphere_max_leaf = (SPHERE_MAX_LEAF_BIG if int(mask.sum()) >= SPHERE_BIG_N
                        else SPHERE_MAX_LEAF)
@@ -320,27 +585,11 @@ def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
     n_spheres = tab.shape[0]
     sclb = np.zeros((1, 8), np.float32)
     scls = np.zeros(2, np.int32)
-    n_sclusters = 0
+    n_sclusters = n_ssc_static = 0
     if n_spheres >= 64:
-        cen = _np(scene.sph_center).astype(np.float32)
-        vel = _np(scene.sph_cvel).astype(np.float32)
-        rad = np.abs(_np(scene.sph_radius).astype(np.float32))
-        rad = np.where(mask > 0, rad, 0.0)
-        cmid = cen + 0.5 * vel
-        rswept = rad + 0.5 * np.linalg.norm(vel, axis=-1)
-        order, cl_start, cl_min, cl_max = build_sphere_clusters(
-            cmid, rswept, max_leaf=sphere_max_leaf)
-        if cl_start.shape[0] - 1 >= 16:
-            # 2-level hierarchy: SAH-cluster the cluster AABBs and permute
-            # clusters (and spheres beneath) super-cluster-contiguous
-            sorder, s_start, s_min, s_max = build_aabb_clusters(
-                cl_min, cl_max, max_leaf=16)
-            order = np.concatenate(
-                [order[cl_start[c]:cl_start[c + 1]] for c in sorder])
-            sizes = (cl_start[1:] - cl_start[:-1])[sorder]
-            cl_start = np.concatenate(
-                [[0], np.cumsum(sizes)]).astype(np.int32)
-            cl_min, cl_max = cl_min[sorder], cl_max[sorder]
+        (order, cl_start, cl_min, cl_max, s_start, s_min, s_max,
+         n_ssc_static) = _cluster_spheres(scene, sphere_max_leaf)
+        if s_start is not None:
             n_sclusters = s_start.shape[0] - 1
             sclb = np.concatenate(
                 [s_min, s_max, np.zeros((n_sclusters, 2), np.float32)],
@@ -365,6 +614,28 @@ def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
             tab = np.concatenate(
                 [tab] + [padrow] * ((-n_spheres) % unroll))
 
+    if "boxes" in scene.features:
+        btab, border, bcls, bclb = pack_box_tables(
+            scene, max_leaf=BOX_MAX_LEAF, pad_to=b_unroll)
+        batt = pack_box_attrs(scene, border)
+        n_boxes, n_bclusters = btab.shape[0], bcls.shape[0] - 1
+        bcls = (bcls // b_unroll).astype(np.int32)
+    else:
+        btab, bclb = np.zeros((1, B_COLS), np.float32), np.zeros((1, 8),
+                                                                 np.float32)
+        batt = np.zeros((1, BA_COLS), np.float32)
+        bcls = np.zeros(2, np.int32)
+        n_boxes = n_bclusters = 0
+    mtab, n_media = (pack_media_table(scene) if "media" in scene.features
+                     else (np.zeros((1, M_COLS), np.float32), 0))
+    # the Perlin lattice and the texels only where a texture reads them
+    perm, randvec = (pack_perlin_tables(scene) if "noise" in scene.features
+                     else (np.zeros((3, 256), np.int32),
+                           np.zeros((256, 3), np.float32)))
+    texels, img_meta = (pack_image_table(scene) if "image" in scene.features
+                        else (np.zeros((1, 3), np.float32),
+                              np.zeros((1, 3), np.int32)))
+
     qtab = _np(pack_quad_table(scene))
     n_quads = qtab.shape[0] if "quads" in scene.features else 0
     ltab, n_lights = (pack_light_table(scene) if mis
@@ -377,40 +648,50 @@ def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
     ]).astype(np.float32)
     bg = np.concatenate([_np(cam.background).astype(np.float32),
                          np.zeros(1, np.float32)])
+    gvel = np.zeros((tab.shape[0], 4), np.float32)
+    gvel[:, :3] = tab[:, J_VX:J_VZ + 1]
 
-    def dev(a, dt=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
-
+    f32, i32 = np.float32, np.int32
+    feats = scene.features
     return Prepared(
-        geom=dev(tab[:, [J_CX, J_CY, J_CZ, J_R2]]), tab=dev(tab),
-        clb=dev(clb), cls=dev(cls, torch.int32), sclb=dev(sclb),
-        scls=dev(scls, torch.int32), qtab=dev(qtab), ltab=dev(ltab),
-        cam_u=dev(cam_u), bg=dev(bg),
-        n_clusters=n_clusters, n_sclusters=n_sclusters, unroll=unroll,
-        n_quads=n_quads, n_lights=n_lights,
-        rows=rows, width=width, height=height,
+        **_upload(dict(
+            geom=(tab[:, [J_CX, J_CY, J_CZ, J_R2]], f32), gvel=(gvel, f32),
+            tab=(tab, f32), clb=(clb, f32), cls=(cls, i32), sclb=(sclb, f32),
+            scls=(scls, i32), qtab=(qtab, f32), ltab=(ltab, f32),
+            btab=(btab, f32), batt=(batt, f32), bclb=(bclb, f32),
+            bcls=(bcls, i32), mtab=(mtab, f32), perm=(perm, i32),
+            randvec=(randvec, f32), texels=(texels, f32),
+            img_meta=(img_meta, i32), cam_u=(cam_u, f32), bg=(bg, f32)),
+            device),
+        n_clusters=n_clusters, n_sclusters=n_sclusters,
+        n_ssc_static=int(n_ssc_static), unroll=unroll,
+        n_quads=n_quads, n_lights=n_lights, n_boxes=n_boxes,
+        n_bclusters=n_bclusters, b_unroll=b_unroll, n_media=n_media,
+        rows=rows, tile_rows=tile_rows, width=width, height=height,
         sky_bg=cam.bg_mode == BG_SKY, defocus=bool(cam.lens_radius_gt0),
         mis=bool(mis), stratified=bool(stratified),
-        sqrt_spp=int(sqrt_spp) if stratified else 0)
+        sqrt_spp=int(sqrt_spp) if stratified else 0,
+        moving="motion" in feats, has_checker="checker" in feats,
+        has_noise="noise" in feats, has_image="image" in feats)
 
 
-_PREP_CACHE: list = []  # [(scene, cam, kw_tuple, prepared)]
+_PREP_CACHE: list = []  # [(scene, (camera key, keywords), prepared)]
 _PREP_CACHE_MAX = 4
 
 
 def prepare_megakernel_cached(scene: Scene, cam: CameraParams,
                               **kw) -> Prepared:
-    """prepare_megakernel with a tiny identity-keyed cache: the passes of
-    one render share their tables.  Entries hold strong references and are
-    matched with ``is`` on scene and camera, so a reused id() can never
-    alias a stale entry."""
-    kw_t = tuple(sorted((k, str(v)) for k, v in kw.items()))
+    """prepare_megakernel with a tiny cache: the passes and repeated renders
+    of one scene share their tables.  Entries hold strong references and
+    are matched with ``is`` on the scene (so a reused id() can never alias
+    a stale entry), by value on the camera (``CameraParams.key``) and on
+    the keywords."""
+    key = (cam.key, tuple(sorted((k, str(v)) for k, v in kw.items())))
     for ent in _PREP_CACHE:
-        if ent[0] is scene and ent[1] is cam and ent[2] == kw_t:
-            return ent[3]
+        if ent[0] is scene and ent[1] == key:
+            return ent[2]
     prep = prepare_megakernel(scene, cam, **kw)
-    _PREP_CACHE.append((scene, cam, kw_t, prep))
+    _PREP_CACHE.append((scene, key, prep))
     if len(_PREP_CACHE) > _PREP_CACHE_MAX:
         _PREP_CACHE.pop(0)
     return prep
@@ -421,39 +702,53 @@ def prepare_megakernel_cached(scene: Scene, cam: CameraParams,
 
 def check_tables(tables: Prepared) -> None:
     """Raise unless every table is a contiguous CUDA tensor of the kernels'
-    type and the geometry rows are 16-byte aligned (read as float4)."""
-    for name in ("geom", "tab", "clb", "sclb", "cam_u", "bg"):
+    type and the float4-read rows are 16-byte aligned."""
+    for name in ("geom", "gvel", "tab", "clb", "sclb", "btab", "batt",
+                 "bclb", "mtab", "randvec", "texels", "cam_u", "bg"):
         _cuda.require(getattr(tables, name), name, torch.float32)
-    for name in ("cls", "scls"):
+    for name in ("cls", "scls", "bcls", "perm", "img_meta"):
         _cuda.require(getattr(tables, name), name, torch.int32)
     _cuda.require(tables.qtab, "qtab", torch.float32, (None, Q_COLS))
     _cuda.require(tables.ltab, "ltab", torch.float32, (None, L_COLS))
-    if tables.geom.data_ptr() % 16:
-        raise ValueError("geom: the kernel reads float4 rows; need 16-byte "
-                         "alignment")
+    _cuda.require(tables.mtab, "mtab", torch.float32, (None, M_COLS))
+    _cuda.require(tables.perm, "perm", torch.int32, (3, 256))
+    _cuda.require(tables.randvec, "randvec", torch.float32, (256, 3))
+    for name in ("geom", "gvel"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads float4 rows; need "
+                             "16-byte alignment")
 
 
 def path_params(t: Prepared, seed: int, *, spp: int, max_depth: int,
                 sample_offset: int = 0,
                 work: torch.Tensor | None = None) -> _cuda.PathParams:
     """The C struct ``rtt::Params`` of a launch on ``t``'s tables.  ``work``
-    (int64 [3], optional) receives the launch's counts of bounces, sphere
-    rows tested and cluster boxes tested, added to what it holds; it selects
-    the counting instance of the kernel, so a timed launch passes none."""
+    (int64 [7], optional) receives the launch's counts named by WORK_NAMES,
+    added to what it holds; it selects the counting instance of the kernel,
+    so a timed launch passes none."""
     if work is not None:
-        _cuda.require(work, "work", torch.int64, (3,))
+        _cuda.require(work, "work", torch.int64, (len(WORK_NAMES),))
     k0, k1 = seed_key(seed)
     return _cuda.PathParams(
-        geom=t.geom.data_ptr(), tab=t.tab.data_ptr(),
+        geom=t.geom.data_ptr(), gvel=t.gvel.data_ptr(), tab=t.tab.data_ptr(),
         n_rows=t.geom.shape[0], clb=t.clb.data_ptr(), cls=t.cls.data_ptr(),
         n_clusters=t.n_clusters, sclb=t.sclb.data_ptr(),
-        scls=t.scls.data_ptr(), n_sclusters=t.n_sclusters, unroll=t.unroll,
+        scls=t.scls.data_ptr(), n_sclusters=t.n_sclusters,
+        n_ssc_static=t.n_ssc_static, unroll=t.unroll,
         qtab=t.qtab.data_ptr(), n_quads=t.n_quads, ltab=t.ltab.data_ptr(),
-        n_lights=t.n_lights, cam=t.cam_u.data_ptr(), bg=t.bg.data_ptr(),
+        n_lights=t.n_lights, btab=t.btab.data_ptr(), batt=t.batt.data_ptr(),
+        bclb=t.bclb.data_ptr(), bcls=t.bcls.data_ptr(), n_boxes=t.n_boxes,
+        n_bclusters=t.n_bclusters, b_unroll=t.b_unroll,
+        mtab=t.mtab.data_ptr(), n_media=t.n_media, perm=t.perm.data_ptr(),
+        randvec=t.randvec.data_ptr(), texels=t.texels.data_ptr(),
+        img_meta=t.img_meta.data_ptr(), n_images=t.img_meta.shape[0],
+        cam=t.cam_u.data_ptr(), bg=t.bg.data_ptr(),
         sky_bg=int(t.sky_bg), defocus=int(t.defocus), width=t.width,
         height=t.height, spp=spp, max_depth=max_depth,
-        stratified=int(t.stratified), sqrt_spp=t.sqrt_spp, k0=k0, k1=k1,
-        sample_offset=int(sample_offset),
+        stratified=int(t.stratified), sqrt_spp=t.sqrt_spp,
+        moving=int(t.moving), has_checker=int(t.has_checker),
+        has_noise=int(t.has_noise), has_image=int(t.has_image), k0=k0,
+        k1=k1, sample_offset=int(sample_offset),
         work=None if work is None else work.data_ptr())
 
 
@@ -492,7 +787,7 @@ def respawn_pass(tables: Prepared, seed: int, sample_offset: int, spp: int,
     params = path_params(tables, seed, spp=spp, max_depth=max_depth,
                          sample_offset=sample_offset, work=work)
     _cuda.launch("megakernel", out.data_ptr(), R, ctypes.addressof(params),
-                 int(tables.mis))
+                 int(tables.mis), int(tables.book2))
     return out
 
 
@@ -500,7 +795,7 @@ def render_pass_megakernel(scene: Scene, cam: CameraParams, seed: int, *,
                            width: int, height: int, spp: int, max_depth: int,
                            sample_offset: int = 0, mis: bool = False,
                            stratified: bool = False, sqrt_spp: int = 0,
-                           device="cpu", step=respawn_pass) -> torch.Tensor:
+                           device, step=respawn_pass) -> torch.Tensor:
     """Whole-image render pass in one K3 launch (pallas_megakernel.py:
     2547-2594); returns the radiance SUM [H, W, 3].  ``step`` is the pass:
     ``respawn_pass``, or ``respawn_pass_plain`` on any device for

@@ -29,6 +29,10 @@ STREAM_BOUNCE = 0  # 4 uniforms of one bounce (scatter u1, u2, dielectric, RR)
 STREAM_CAMERA = 1  # 4 uniforms of a camera ray (jitter x, y, lens r, theta)
 STREAM_MIS_A = 2  # NEE/MIS u5-u8 (material direction, light sample)
 STREAM_MIS_B = 3  # NEE/MIS u9, u10 (light pick, mixture choice), 2 unused
+STREAM_TIME = 4  # camera ray time of a moving scene (bounce word 0), 3 unused
+# constant media: medium m's free-flight uniform of a bounce is word m % 4
+# of stream STREAM_MEDIA + m // 4
+STREAM_MEDIA = 5
 
 
 def _mulhilo(m: int, x: torch.Tensor):

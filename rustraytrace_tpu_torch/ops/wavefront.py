@@ -1,13 +1,18 @@
 """The persist path tracer's launch loop, K2 and the plain twin of the
 shading that K2 and K3 share (counterparts:
-``rustraytrace_tpu/ops/pallas_wavefront.py``, non-image branch, and
-``_make_kernel`` in ``pallas_megakernel.py``: intersect :883-1200,
-bounce_body :1202-1771, spawn_rays :1817, the persist branch :1856-1991).
+``rustraytrace_tpu/ops/pallas_wavefront.py`` and ``_make_kernel`` in
+``pallas_megakernel.py``: intersect :714-1200, bounce_body :1202-1771,
+spawn_rays :1817, the persist branch :1856-1991).
 
-``render_pass_wavefront`` routes as the JAX package does: scenes on
-``sorted_persist_route`` (>= 256 primitives, at most 2 Mi slot lanes) run
-the persist launch loop below; every other scene goes to the respawn
-megakernel K3 (``ops/megakernel.py``).
+``render_pass_wavefront`` routes as the JAX package does: image-textured
+scenes take the image route (the persist launch loop at the image route's
+tile height and launch bound, sorted with per-tile adaptive bounds on
+scenes of >= 256 primitives); other scenes on ``sorted_persist_route``
+(>= 256 primitives, at most 2 Mi slot lanes) run the sorted persist launch
+loop; every other scene goes to the respawn megakernel K3
+(``ops/megakernel.py``).  The JAX image route froze a lane on an image hit
+and resolved its texel in XLA between launches; here the kernels fetch
+texels themselves, so the image route is the same loop without freezes.
 
 A pass keeps one lane per pixel slot (32x32 screen-block swizzle).  Each
 launch of ``persist_step`` advances every lane through up to
@@ -28,9 +33,10 @@ launch, sorted position or kernel runs it: renders are bitwise invariant to
 the sort and to ``persist_iters``, and K3 equals the unsorted loop.
 
 Intersection: the CUDA kernels cull spheres with the two-level SAH cluster
-hierarchy per thread (a slab test against the thread's own best t), and the
-plain twin runs the same cull, vectorised over lanes.  Both take the first
-strict minimum in table order, spheres before quads, so they pick the same
+hierarchy per thread (a slab test against the thread's own best t), and
+boxes with their own clusters; the plain twin runs the same culls,
+vectorised over lanes.  Both take the first strict minimum in table order,
+spheres, then boxes, then quads, then constant media, so they pick the same
 winner.  The cull is not exactly a full scan: see ``_sphere_hits_plain``.
 """
 
@@ -42,23 +48,33 @@ import numpy as np
 import torch
 
 from ..scene import (DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, LIGHT_QUAD, METAL,
-                     Scene)
+                     TEX_CHECKER, TEX_IMAGE, TEX_NOISE, Scene)
 from . import _cuda
-from .hit import (_BIG, Q_AB, Q_AG, Q_AR, Q_FUZZ, Q_IOR, Q_KIND, Q_NX, Q_NY,
-                  Q_NZ, T_MAX, T_MIN, quad_hits)
-from .megakernel import (L_AREA, L_CX, L_CY, L_CZ, L_DP, L_KIND, L_NX, L_NY,
-                         L_NZ, L_QX, L_QY, L_QZ, L_RAD, L_UX, L_UY, L_UZ,
-                         L_VX, L_VY, L_VZ, L_WX, L_WY, L_WZ, TILE_LANES,
-                         Prepared, _BLK, active_primitive_count,
-                         check_tables, path_params,
+from .hit import (_BIG, Q_AB, Q_AG, Q_AR, Q_C2B, Q_C2G, Q_C2R, Q_DP, Q_FUZZ,
+                  Q_IMG, Q_INVS, Q_IOR, Q_KIND, Q_NX, Q_NY, Q_NZ, Q_QX, Q_QY,
+                  Q_QZ, Q_TEXK, Q_UX, Q_UY, Q_UZ, Q_VX, Q_VY, Q_VZ, Q_WX,
+                  Q_WY, Q_WZ, T_MAX, T_MIN, quad_hits)
+from .megakernel import (BA_AB, BA_AG, BA_AR, BA_C2B, BA_C2G, BA_C2R,
+                         BA_FUZZ, BA_INVS, BA_IOR, BA_KIND, BA_TEXK, J_AB,
+                         J_AG, J_AR, J_C2B, J_C2G, J_C2R, J_FUZZ, J_IMG,
+                         J_INVR, J_INVS, J_IOR, J_KIND, J_TEXK, J_VX, J_VY,
+                         J_VZ, L_AREA, L_CX, L_CY, L_CZ, L_DP, L_KIND, L_NX,
+                         L_NY, L_NZ, L_QX, L_QY, L_QZ, L_RAD, L_UX, L_UY,
+                         L_UZ, L_VX, L_VY, L_VZ, L_WX, L_WY, L_WZ, M_AB, M_AG,
+                         M_AR, M_COS, M_CX, M_CY, M_CZ, M_HIZ, M_KIND, M_LOX,
+                         M_NID, M_R2, M_SIN, TILE_LANES, Prepared, _BLK, _np,
+                         active_primitive_count, check_tables, path_params,
                          prepare_megakernel_cached, render_pass_megakernel,
                          respawn_pass, respawn_tile_rows,
                          unswizzle_index_on)
-from .rng import (STREAM_BOUNCE, STREAM_CAMERA, STREAM_MIS_A, STREAM_MIS_B,
-                  seed_key, uniforms4)
+from .rng import (STREAM_BOUNCE, STREAM_CAMERA, STREAM_MEDIA, STREAM_MIS_A,
+                  STREAM_MIS_B, STREAM_TIME, seed_key, uniforms4)
 
 _TWO_PI = 6.283185307179586
 _INV_PI = 0.3183098861837907
+# sphere UV constants as the JAX XLA sphere_uv rounds them to f32
+_UV_PI = float(np.float32(3.14159265358979))
+_UV_TWO_PI = float(np.float32(2.0 * 3.14159265358979))
 RR_START_BOUNCE = 5
 RR_P_MIN = 0.05
 RR_P_MAX = 0.95
@@ -83,6 +99,50 @@ def persist_plain_iters(spp: int) -> int:
 def persist_sort_every(persist_iters: int) -> int:
     """Sort cadence: every launch boundary unless launches are short."""
     return 8 if persist_iters <= 8 else 1
+
+
+# Iterations per launch on the image route (pallas_wavefront.py:86-91):
+# image-sparse scenes, image-dense ones, and sorted ones.  The JAX
+# package's starting points, tuned on the TPU, not yet on this card.
+PERSIST_SPARSE_ITERS = 4
+PERSIST_DENSE_ITERS = 8
+PERSIST_SORT_ITERS = 8
+
+
+def persist_adaptive_bounds(persist_iters: int) -> tuple:
+    """Per-tile launch bounds (short, long, rel) for short-bound launches
+    (pallas_wavefront.py:122-133): a tile whose live lanes span more than
+    ``rel`` of the live lanes' extent gets the short bound in the next
+    launch.  Long-bound launches keep uniform bounds (an empty tuple)."""
+    return (4, 8, 0.25) if persist_iters <= 8 else ()
+
+
+def texel_gate_heuristic(scene: Scene) -> bool:
+    """True when image-textured primitives are a sliver of the scene
+    (pallas_wavefront.py:199-218).  The JAX package gated its texel resolve
+    on it; here it only picks the image route's launch bound."""
+    img_mat = (_np(scene.tex_kind)[_np(scene.mat_tex)] == TEX_IMAGE)
+    n_img = 0
+    for mats, mask in ((scene.sph_mat, scene.sph_mask),
+                       (scene.quad_mat, scene.quad_mask),
+                       (scene.box_mat, scene.box_mask)):
+        n_img += int(np.sum((_np(mask) > 0) & img_mat[_np(mats)]))
+    return active_primitive_count(scene) > 8 * max(n_img, 1)
+
+
+def wavefront_tile_rows(scene: Scene) -> int:
+    """Rows of 128 lanes per tile on the image route
+    (pallas_wavefront.py:958-970): 128 for scenes of at most 4 primitives,
+    else 32.  It sets the lane padding and the per-tile bounds' tiles."""
+    return 128 if active_primitive_count(scene) <= 4 else 32
+
+
+def image_route_iters(scene: Scene, sort: bool) -> int:
+    """Launch bound of the image route (pallas_wavefront.py:1063-1065)."""
+    if sort:
+        return PERSIST_SORT_ITERS
+    return (PERSIST_SPARSE_ITERS if texel_gate_heuristic(scene)
+            else PERSIST_DENSE_ITERS)
 
 
 RAY_SORT_MAX_LANES = 1 << 21
@@ -218,18 +278,28 @@ def _recip(n: int) -> float:
     return float(np.float32(1.0) / np.float32(n))
 
 
-def _sphere_rows_min(geom: torch.Tensor, ox, oy, oz, dx, dy, dz, a, inv_a):
+def _sphere_rows_min(geom: torch.Tensor, ox, oy, oz, dx, dy, dz, a, inv_a,
+                     vel: torch.Tensor | None = None, tm=None):
     """(least valid root [n], first row at it [n]) of rays against the
     sphere rows ``geom`` [M, 4]: the sequential strict-``<`` scan of
-    csrc/path.cuh ``scan_spheres``.  ``_BIG`` where no row is hit."""
+    csrc/path.cuh ``scan_spheres``, with the centers moved to the rays'
+    times ``tm`` by ``vel`` [M, 4] when given.  ``_BIG`` where no row is
+    hit."""
     n = ox.shape[0]
     M = geom.shape[0]
-    cx, cy, cz, r2 = (geom[None, :, k] for k in range(4))
+    cx0, cy0, cz0, r2 = (geom[None, :, k] for k in range(4))
     bt = torch.empty_like(ox)
     bi = torch.empty(n, dtype=torch.int64, device=ox.device)
     step = max(1, _PLAIN_CHUNK_ELEMS // max(M, 1))
     for lo in range(0, n, step):
         s = slice(lo, min(n, lo + step))
+        cx, cy, cz = cx0, cy0, cz0
+        if vel is not None:
+            # center at the ray's time (sphere.rs:30-35)
+            t = tm[s, None]
+            cx = cx + t * vel[None, :, 0]
+            cy = cy + t * vel[None, :, 1]
+            cz = cz + t * vel[None, :, 2]
         ocx = cx - ox[s, None]
         ocy = cy - oy[s, None]
         ocz = cz - oz[s, None]
@@ -251,28 +321,56 @@ def _safe_inv(d):
     return 1.0 / torch.where(torch.abs(d) < 1e-20, sg, d)
 
 
-def _box_hit(b, ox, oy, oz, ivx, ivy, ivz, bt):
-    """Slab test of the box b = (lo3, hi3) against rays, entry before ``bt``
-    (csrc/path.cuh ``box_hit``; pallas_megakernel.py:797)."""
+def _slab(b, ox, oy, oz, ivx, ivy, ivz):
+    """Slab entry and exit (t1, t2) of the box b = (lo3, hi3) (csrc/path.cuh
+    ``slab``); b's entries broadcast against the rays."""
     tx1, tx2 = (b[0] - ox) * ivx, (b[3] - ox) * ivx
     ty1, ty2 = (b[1] - oy) * ivy, (b[4] - oy) * ivy
     tz1, tz2 = (b[2] - oz) * ivz, (b[5] - oz) * ivz
     mn, mx = torch.minimum, torch.maximum
-    t1 = mx(mx(mn(tx1, tx2), mn(ty1, ty2)), mn(tz1, tz2))
-    t2 = mn(mn(mx(tx1, tx2), mx(ty1, ty2)), mx(tz1, tz2))
+    return (mx(mx(mn(tx1, tx2), mn(ty1, ty2)), mn(tz1, tz2)),
+            mn(mn(mx(tx1, tx2), mx(ty1, ty2)), mx(tz1, tz2)))
+
+
+def _box_hit(b, ox, oy, oz, ivx, ivy, ivz, bt):
+    """Slab test of the box b = (lo3, hi3) against rays, entry before ``bt``
+    (csrc/path.cuh ``box_hit``; pallas_megakernel.py:797)."""
+    t1, t2 = _slab(b, ox, oy, oz, ivx, ivy, ivz)
     return (t1 <= t2) & (t2 > T_MIN) & (t1 < bt)
 
 
-def _sphere_hits_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
+def _culled_min(bt, bi, clusters, rows_min, ox, oy, oz, iv):
+    """Walk ``clusters`` [(box, lo, hi)] in order: the lanes whose ray
+    enters a cluster's box before their best t so far scan its rows
+    ``rows_min(lo, hi, lane index)`` -> (t, row), and keep a strictly
+    smaller t.  Updates ``bt`` and ``bi`` in place."""
+    for box, lo, hi in clusters:
+        sel = _box_hit(box, ox, oy, oz, *iv, bt).nonzero().squeeze(1)
+        if sel.numel() == 0:
+            continue
+        t, i = rows_min(lo, hi, sel)
+        take = t < bt[sel]
+        bt[sel] = torch.where(take, t, bt[sel])
+        bi[sel] = torch.where(take, i + lo, bi[sel])
+
+
+def _sphere_hits_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a,
+                       tm=None):
     """(best t [n], sphere winner row [n]) through the kernels' per-thread
     cull: super-cluster and cluster boxes in table order, each slab-tested
     against the ray's best t so far, then the rows of each cluster it
     enters.  The cull is what the kernels compute, not a brute-force scan:
     where an f32 root lies past its cluster's box (a ray leaving the
     r = 1000 ground sphere just under its surface, whose root carries the
-    rounding of |oc|^2 - r^2), the box test drops the hit in both."""
+    rounding of |oc|^2 - r^2), the box test drops the hit in both.
+
+    A moving scene moves every center to the ray's time: the kernels skip
+    the velocity reads on static super-clusters, whose zero velocities
+    leave the centers unchanged."""
+    vel = prep.gvel if prep.moving else None
     if prep.n_clusters == 0:
-        return _sphere_rows_min(prep.geom, ox, oy, oz, dx, dy, dz, a, inv_a)
+        return _sphere_rows_min(prep.geom, ox, oy, oz, dx, dy, dz, a, inv_a,
+                                vel, tm)
     n = ox.shape[0]
     bt = torch.full_like(ox, _BIG)
     bi = torch.zeros(n, dtype=torch.int64, device=ox.device)
@@ -285,29 +383,133 @@ def _sphere_hits_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
                   for g in range(prep.n_sclusters)]
     else:
         groups = [(None, range(prep.n_clusters))]
+    ray = (ox, oy, oz, dx, dy, dz, a, inv_a)
+
+    def rows_min(lo, hi, sel):
+        return _sphere_rows_min(
+            prep.geom[lo:hi], *(x[sel] for x in ray),
+            None if vel is None else vel[lo:hi],
+            None if vel is None else tm[sel])
+
     for sbox, clusters in groups:
-        enter = (torch.ones_like(ox, dtype=torch.bool) if sbox is None
-                 else _box_hit(sbox, ox, oy, oz, *iv, bt))
-        for c in clusters:
-            sel = (enter & _box_hit(clb[c], ox, oy, oz, *iv, bt)
-                   ).nonzero().squeeze(1)
-            if sel.numel() == 0:
-                continue
-            t, i = _sphere_rows_min(
-                prep.geom[starts[c]:starts[c + 1]],
-                *(x[sel] for x in (ox, oy, oz, dx, dy, dz, a, inv_a)))
-            take = t < bt[sel]
-            bt[sel] = torch.where(take, t, bt[sel])
-            bi[sel] = torch.where(take, i + starts[c], bi[sel])
+        sub = (torch.arange(n, device=ox.device) if sbox is None
+               else _box_hit(sbox, ox, oy, oz, *iv, bt).nonzero().squeeze(1))
+        if sub.numel() == 0:
+            continue
+        # the lanes that entered the super-cluster, as one sub-problem
+        bt_s, bi_s = bt[sub], bi[sub]
+        _culled_min(
+            bt_s, bi_s, [(clb[c], starts[c], starts[c + 1]) for c in clusters],
+            lambda lo, hi, sel: rows_min(lo, hi, sub[sel]),
+            *(x[sub] for x in (ox, oy, oz)), [x[sub] for x in iv])
+        bt[sub], bi[sub] = bt_s, bi_s
     return bt, bi
 
 
-def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
-    """(best t [n], sphere winner row [n], quad winner row [n] or -1):
-    spheres through the kernels' cluster cull, then every quad.  A quad
-    wins only with a strictly smaller t, so a sphere wins a tie."""
-    bt, bi = _sphere_hits_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a)
-    qi = torch.full_like(bi, -1)
+def _box_rows_min(btab: torch.Tensor, ox, oy, oz, ivx, ivy, ivz):
+    """(least valid root [n], first row at it [n]) of rays against the box
+    rows ``btab`` [M, 8]: the entry face if its t is in (T_MIN, T_MAX), else
+    the exit face (csrc/path.cuh ``scan_boxes``).  ``_BIG`` where none."""
+    n, M = ox.shape[0], btab.shape[0]
+    bt = torch.empty_like(ox)
+    bi = torch.empty(n, dtype=torch.int64, device=ox.device)
+    b = [btab[None, :, k] for k in range(6)]
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(M, 1))
+    for lo in range(0, n, step):
+        s = slice(lo, min(n, lo + step))
+        t1, t2 = _slab(b, *(x[s, None] for x in (ox, oy, oz, ivx, ivy, ivz)))
+        near_ok = (t1 > T_MIN) & (t1 < T_MAX)
+        root = torch.where(near_ok, t1, t2)
+        ok = (t1 < t2) & (root > T_MIN) & (root < T_MAX)
+        bt[s], bi[s] = torch.min(torch.where(ok, root, _BIG), dim=1)
+    return bt, bi
+
+
+def _box_hits_plain(prep: Prepared, ox, oy, oz, iv, bt):
+    """Box winner row [n] or -1 after the spheres, through the box-cluster
+    cull (one flat scan when there is a single cluster); lowers ``bt`` in
+    place where a box is strictly closer."""
+    boxi = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+    if prep.n_bclusters <= 1:
+        t, i = _box_rows_min(prep.btab[:prep.n_boxes], ox, oy, oz, *iv)
+        take = t < bt
+        bt.copy_(torch.where(take, t, bt))
+        return torch.where(take, i, boxi)
+    U = prep.b_unroll
+    bclb = prep.bclb.tolist()
+    starts = [int(v) * U for v in prep.bcls.tolist()]
+    _culled_min(
+        bt, boxi, [(bclb[c], starts[c], starts[c + 1])
+                   for c in range(prep.n_bclusters)],
+        lambda lo, hi, sel: _box_rows_min(
+            prep.btab[lo:hi], *(x[sel] for x in (ox, oy, oz, *iv))),
+        ox, oy, oz, iv)
+    return boxi
+
+
+def _media_hits_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a, bt,
+                      u_media):
+    """Medium winner [n] or -1: each constant medium in table order samples
+    a free flight inside its boundary, clipped by the running closest hit
+    (pallas_megakernel.py:1100-1199; csrc/path.cuh ``intersect``);
+    ``u_media`` holds one uniform per medium.  Lowers ``bt`` in place."""
+    mi = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+    kinds = prep.mtab[:prep.n_media, M_KIND].tolist()
+    inv_len_m = 1.0 / torch.sqrt(a)
+    dlen = a * inv_len_m
+    for m in range(prep.n_media):
+        mr = prep.mtab[m]
+        if kinds[m] < 0.5:
+            # sphere boundary roots over (-inf, inf)
+            ocx = mr[M_CX] - ox
+            ocy = mr[M_CY] - oy
+            ocz = mr[M_CZ] - oz
+            hh = dx * ocx + dy * ocy + dz * ocz
+            cc = ocx * ocx + ocy * ocy + ocz * ocz - mr[M_R2]
+            disc = hh * hh - a * cc
+            sqd = torch.sqrt(torch.clamp(disc, min=0.0))
+            t1 = (hh - sqd) * inv_a
+            t2 = (hh + sqd) * inv_a
+            in_ok = disc > 0.0
+        else:
+            # oriented box: world -> local (offset, then rotate by -theta)
+            cth, sth = mr[M_COS], mr[M_SIN]
+            rox = ox - mr[M_CX]
+            roz = oz - mr[M_CZ]
+            lo3 = (cth * rox - sth * roz, oy - mr[M_CY], sth * rox + cth * roz)
+            il = (_safe_inv(cth * dx - sth * dz), _safe_inv(dy),
+                  _safe_inv(sth * dx + cth * dz))
+            t1, t2 = _slab(mr[M_LOX:M_HIZ + 1], *lo3, *il)
+            in_ok = t1 < t2
+        t1c = torch.clamp(t1, min=T_MIN)
+        t2c = torch.minimum(t2, bt)
+        ok = in_ok & (t1c < t2c)
+        t1c = torch.clamp(t1c, min=0.0)
+        dist_inside = (t2c - t1c) * dlen
+        hitd = mr[M_NID] * torch.log(torch.clamp(u_media[m], min=1e-12))
+        ok = ok & (hitd <= dist_inside)
+        t_med = t1c + hitd * inv_len_m
+        take = ok & (t_med < bt)
+        bt.copy_(torch.where(take, t_med, bt))
+        mi = torch.where(take, m, mi)
+    return mi
+
+
+def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a,
+                     tm=None, u_media=None):
+    """(best t, sphere row, quad row, box row, medium) [n] each, -1 where
+    that class did not set the best t: spheres through the kernels' cluster
+    cull, then the boxes through theirs, then every quad, then the constant
+    media (``u_media``: a uniform per medium), each with a strict ``<`` in
+    table order, so an earlier class wins a tie.  The last class that set
+    its row is the winner."""
+    bt, bi = _sphere_hits_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a, tm)
+    neg = torch.full_like(bi, -1)
+    boxi = neg
+    if prep.n_boxes:
+        iv = [_safe_inv(x) for x in (dx, dy, dz)]
+        boxi = _box_hits_plain(prep, ox, oy, oz, iv, bt)
+    qi = neg
     if prep.n_quads:
         tq, okq = quad_hits(prep.qtab[:prep.n_quads], *(
             x[:, None] for x in (ox, oy, oz, dx, dy, dz)))
@@ -315,7 +517,11 @@ def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a):
         take = qt < bt
         bt = torch.where(take, qt, bt)
         qi = torch.where(take, qbest, qi)
-    return bt, bi, qi
+    mi = neg
+    if prep.n_media:
+        mi = _media_hits_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a, bt,
+                               u_media)
+    return bt, bi, qi, boxi, mi
 
 
 def _onb(wx, wy, wz):
@@ -420,40 +626,230 @@ def light_pdf(prep: Prepared, px_, py_, pz_, gdx, gdy, gdz, g2, ginv):
     return lp * _recip(prep.n_lights)
 
 
-def _bounce_plain(prep: Prepared, v: dict, u, u_mis, max_depth: int) -> None:
+def _box_normal(bb, ox, oy, oz, dx, dy, dz):
+    """Outward normal of the box face a ray enters, or leaves from inside
+    (csrc/path.cuh ``bounce``; pallas_megakernel.py:996-1036): entry -> the
+    last slab entry, exit -> the first slab exit, with its >= / <= tie
+    breaks.  ``bb`` [n, 8] holds the winning boxes' lo3, hi3."""
+    ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    tx1 = (bb[:, 0] - ox) * ivx
+    tx2 = (bb[:, 3] - ox) * ivx
+    ty1 = (bb[:, 1] - oy) * ivy
+    ty2 = (bb[:, 4] - oy) * ivy
+    tz1 = (bb[:, 2] - oz) * ivz
+    tz2 = (bb[:, 5] - oz) * ivz
+    mn, mx = torch.minimum, torch.maximum
+    txn, txf = mn(tx1, tx2), mx(tx1, tx2)
+    tyn, tyf = mn(ty1, ty2), mx(ty1, ty2)
+    tzn, tzf = mn(tz1, tz2), mx(tz1, tz2)
+    t1b = mx(mx(txn, tyn), tzn)
+    entry = (t1b > T_MIN) & (t1b < T_MAX)
+    ex_ = (txn >= tyn) & (txn >= tzn)
+    ey_ = ~ex_ & (tyn >= tzn)
+    xx_ = (txf <= tyf) & (txf <= tzf)
+    xy_ = ~xx_ & (tyf <= tzf)
+    usex = (entry & ex_) | (~entry & xx_)
+    usey = (entry & ey_) | (~entry & xy_)
+    s_e = torch.where(entry, -1.0, 1.0)
+
+    def sgn(d):
+        return s_e * torch.where(d >= 0.0, 1.0, -1.0)
+
+    return (torch.where(usex, sgn(dx), 0.0), torch.where(usey, sgn(dy), 0.0),
+            torch.where(usex | usey, 0.0, sgn(dz)))
+
+
+def _noise_at(prep: Prepared, qx, qy, qz):
+    """Perlin lattice noise (perlin.rs:25-98; csrc/path.cuh ``noise_at``):
+    Hermite-smoothed blend of the 8 corner gradients, corner indices xor-
+    combined from the three permutations with ``& 255`` wrapping (two's
+    complement for negative floors)."""
+    fx, fy, fz = torch.floor(qx), torch.floor(qy), torch.floor(qz)
+    ux, uy, uz = qx - fx, qy - fy, qz - fz
+    iq, jq, kq = (f.to(torch.int32) for f in (fx, fy, fz))
+    sx = ux * ux * (3.0 - 2.0 * ux)
+    sy = uy * uy * (3.0 - 2.0 * uy)
+    sz = uz * uz * (3.0 - 2.0 * uz)
+    perm = prep.perm.long()
+    acc = torch.zeros_like(qx)
+    for di in range(2):
+        pi = perm[0][((iq + di) & 255).long()]
+        wxf = sx if di else (1.0 - sx)
+        for dj in range(2):
+            pj = perm[1][((jq + dj) & 255).long()]
+            wyf = sy if dj else (1.0 - sy)
+            for dk in range(2):
+                pk = perm[2][((kq + dk) & 255).long()]
+                c = prep.randvec[pi ^ pj ^ pk]
+                dot = (c[:, 0] * (ux - float(di)) + c[:, 1] * (uy - float(dj))
+                       + c[:, 2] * (uz - float(dk)))
+                wzf = sz if dk else (1.0 - sz)
+                acc = acc + wxf * wyf * wzf * dot
+    return acc
+
+
+def _marble(prep: Prepared, scale, px, py, pz):
+    """0.5 (1 + sin(scale z + 10 turb(p, 7))) (texture.rs:122-126,
+    perlin.rs:50-62; csrc/path.cuh ``marble``)."""
+    tacc = torch.zeros_like(px)
+    wgt, qx, qy, qz = 1.0, px, py, pz
+    for _ in range(7):
+        tacc = tacc + wgt * _noise_at(prep, qx, qy, qz)
+        wgt = wgt * 0.5
+        qx, qy, qz = qx * 2.0, qy * 2.0, qz * 2.0
+    return 0.5 * (1.0 + torch.sin(scale * pz + 10.0 * torch.abs(tacc)))
+
+
+def sphere_uv(owx, owy, owz):
+    """Sphere (u, v) from the pre-flip outward normal, with the XLA
+    sphere_uv's pole guards (ops/intersect.py:309-328 there; sphere.rs:47-53;
+    csrc/path.cuh ``sphere_uv``)."""
+    y = torch.clamp(-owy, -1.0, 1.0)
+    safe = torch.abs(y) < 0.999999
+    theta = torch.acos(torch.where(safe, y, 0.0))
+    theta = torch.where(safe, theta, torch.where(y > 0.0, 0.0, _UV_PI))
+    deg = (torch.abs(owx) < 1e-12) & (torch.abs(owz) < 1e-12)
+    phi = torch.atan2(torch.where(deg, 0.0, -owz),
+                      torch.where(deg, 1.0, owx)) + _UV_PI
+    return phi / _UV_TWO_PI, theta / _UV_PI
+
+
+def _quad_uv(q, ox, oy, oz, dx, dy, dz):
+    """A quad's (u, v) at the hit: its planar coordinates alpha, beta, in
+    the order of ``hit.quad_hits`` (quad.rs:84-86); ``q`` [n, 32] holds the
+    winning rows."""
+    nqx, nqy, nqz = q[:, Q_NX], q[:, Q_NY], q[:, Q_NZ]
+    denom = dx * nqx + dy * nqy + dz * nqz
+    safe = torch.where(torch.abs(denom) < 1e-8, 1.0, denom)
+    tq = (q[:, Q_DP] - (ox * nqx + oy * nqy + oz * nqz)) / safe
+    relx = ox + tq * dx - q[:, Q_QX]
+    rely = oy + tq * dy - q[:, Q_QY]
+    relz = oz + tq * dz - q[:, Q_QZ]
+    ux, uy, uz = q[:, Q_UX], q[:, Q_UY], q[:, Q_UZ]
+    vx, vy, vz = q[:, Q_VX], q[:, Q_VY], q[:, Q_VZ]
+    wx, wy, wz = q[:, Q_WX], q[:, Q_WY], q[:, Q_WZ]
+    return (wx * (rely * vz - relz * vy) + wy * (relz * vx - relx * vz)
+            + wz * (relx * vy - rely * vx),
+            wx * (uy * relz - uz * rely) + wy * (uz * relx - ux * relz)
+            + wz * (ux * rely - uy * relx))
+
+
+def image_texel(prep: Prepared, img, u, v):
+    """Nearest texel of image ``img`` at clamped (u, v), v flipped
+    (texture.rs:89-109; ops/textures.py image_texel there; csrc/path.cuh
+    ``image_texel``): (r, g, b) [n] each."""
+    meta = prep.img_meta.long()
+    k = torch.clamp(img.to(torch.int64), 0, meta.shape[0] - 1)
+    base, w, h = meta[k, 0], meta[k, 1], meta[k, 2]
+    uc = torch.clamp(u, 0.0, 1.0)
+    vc = 1.0 - torch.clamp(v, 0.0, 1.0)
+    i = torch.minimum((uc * w.to(torch.float32)).to(torch.int64), w - 1)
+    j = torch.minimum((vc * h.to(torch.float32)).to(torch.int64), h - 1)
+    tx = prep.texels[base + j * w + i]
+    return tx[:, 0], tx[:, 1], tx[:, 2]
+
+
+def _apply_textures(prep: Prepared, alb, tex, qwin, qrow, ray, ow, p):
+    """The winner's texture replaces its albedo (TEX_CHECKER, TEX_NOISE,
+    TEX_IMAGE; csrc/path.cuh ``bounce``).  Each is evaluated on the lanes
+    that need it only."""
+    car, cag, cab = alb
+    tk, c2r, c2g, c2b, ivs, img = tex
+    px_, py_, pz_ = p
+
+    def put(sel, vals):
+        nonlocal car, cag, cab
+        car, cag, cab = (x.index_put((sel,), y)
+                         for x, y in zip((car, cag, cab), vals))
+
+    if prep.has_checker:
+        sel = (tk == float(TEX_CHECKER)).nonzero().squeeze(1)
+        if sel.numel():
+            # 3-D lattice parity: odd cells take the second color
+            s = ivs[sel]
+            csum = (torch.floor(s * px_[sel]).to(torch.int32)
+                    + torch.floor(s * py_[sel]).to(torch.int32)
+                    + torch.floor(s * pz_[sel]).to(torch.int32))
+            odd = csum % 2 != 0
+            put(sel, (torch.where(odd, c[sel], x[sel]) for c, x in
+                      zip((c2r, c2g, c2b), (car, cag, cab))))
+    if prep.has_noise:
+        sel = (tk == float(TEX_NOISE)).nonzero().squeeze(1)
+        if sel.numel():
+            mv = _marble(prep, ivs[sel], px_[sel], py_[sel], pz_[sel])
+            put(sel, (mv, mv, mv))
+    if prep.has_image:
+        sel = (tk == float(TEX_IMAGE)).nonzero().squeeze(1)
+        if sel.numel():
+            su, sv = sphere_uv(*(x[sel] for x in ow))
+            qu, qv = _quad_uv(qrow[sel], *(x[sel] for x in ray))
+            qs = qwin[sel]
+            put(sel, image_texel(prep, img[sel], torch.where(qs, qu, su),
+                                 torch.where(qs, qv, sv)))
+    return car, cag, cab
+
+
+def _bounce_plain(prep: Prepared, v: dict, u, u_mis, u_media,
+                  max_depth: int) -> None:
     """One bounce of live lanes (bounce_body, pallas_megakernel.py:1202-1771:
-    spheres and quads, solid albedo; the path integrator, or with
-    ``prep.mis`` the NEE/MIS estimator without its isotropic branch, which
-    comes with media), updating ``v`` in place.  ``u_mis`` holds u5-u10.
-    Expression order matches csrc/path.cuh, which is built without
-    contracted multiply-adds, so the two round identically."""
+    spheres, moving or not, boxes, quads and constant media; solid, checker,
+    Perlin-marble and image albedos; the path integrator, or with
+    ``prep.mis`` the NEE/MIS estimator without its isotropic branch),
+    updating ``v`` in place.  ``u_mis`` holds u5-u10, ``u_media`` a uniform
+    per medium.  Expression order matches csrc/path.cuh, which is built
+    without contracted multiply-adds, so the two round identically."""
     ox, oy, oz, dx, dy, dz = (v[k] for k in ("ox", "oy", "oz",
                                              "dx", "dy", "dz"))
     ax, ay, az, rx, ry, rz = (v[k] for k in ("ax", "ay", "az",
                                              "rx", "ry", "rz"))
-    alive, b = v["alive"], v["b"]
+    alive, b, tm = v["alive"], v["b"], v["tm"]
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
-    t, bi, qi = _intersect_plain(prep, ox, oy, oz, dx, dy, dz, a, inv_a)
+    t, bi, qi, boxi, mi = _intersect_plain(prep, ox, oy, oz, dx, dy, dz, a,
+                                           inv_a, tm, u_media)
     hit = t < _BIG
-    qwin = qi >= 0
-    row = prep.tab[torch.where(hit & ~qwin, bi, 0)]
+    # the final winner: the last class that set its row
+    mwin = mi >= 0
+    qwin = ~mwin & (qi >= 0)
+    bwin = ~mwin & ~qwin & (boxi >= 0)
+    swin = ~(mwin | qwin | bwin)
+    row = prep.tab[torch.where(hit & swin, bi, 0)]
     qrow = prep.qtab[torch.where(qwin, qi, 0)]
+    brow = prep.batt[torch.where(bwin, boxi, 0)]
+    mrow = prep.mtab[torch.where(mwin, mi, 0)]
 
-    def pick(qcol, scol):
-        return torch.where(qwin, qrow[:, qcol], row[:, scol])
+    def pick(qcol, bcol, scol, mval):
+        """The winner's column: quad, box, sphere, or the medium's value."""
+        out = torch.where(qwin, qrow[:, qcol], torch.where(
+            bwin, brow[:, bcol], row[:, scol]))
+        return torch.where(mwin, mval, out)
 
-    kind = torch.where(qwin, qrow[:, Q_KIND],
-                       torch.where(hit, row[:, 8], 0.0))
-    car, cag, cab = pick(Q_AR, 9), pick(Q_AG, 10), pick(Q_AB, 11)
-    fz, io = pick(Q_FUZZ, 12), pick(Q_IOR, 13)
-    invr = row[:, 7]
-    owx = torch.where(qwin, qrow[:, Q_NX], torch.where(
-        hit, (t * dx - (row[:, 0] - ox)) * invr, 0.0))
-    owy = torch.where(qwin, qrow[:, Q_NY], torch.where(
-        hit, (t * dy - (row[:, 1] - oy)) * invr, 0.0))
-    owz = torch.where(qwin, qrow[:, Q_NZ], torch.where(
-        hit, (t * dz - (row[:, 2] - oz)) * invr, 1.0))
+    kind = pick(Q_KIND, BA_KIND, J_KIND, float(ISOTROPIC))
+    kind = torch.where(hit, kind, 0.0)
+    car = pick(Q_AR, BA_AR, J_AR, mrow[:, M_AR])
+    cag = pick(Q_AG, BA_AG, J_AG, mrow[:, M_AG])
+    cab = pick(Q_AB, BA_AB, J_AB, mrow[:, M_AB])
+    fz = pick(Q_FUZZ, BA_FUZZ, J_FUZZ, 0.0)
+    io = pick(Q_IOR, BA_IOR, J_IOR, 1.0)
+    invr = row[:, J_INVR]
+    cxw, cyw, czw = row[:, 0], row[:, 1], row[:, 2]
+    if prep.moving:
+        cxw = cxw + tm * row[:, J_VX]
+        cyw = cyw + tm * row[:, J_VY]
+        czw = czw + tm * row[:, J_VZ]
+    sow = (torch.where(hit, (t * dx - (cxw - ox)) * invr, 0.0),
+           torch.where(hit, (t * dy - (cyw - oy)) * invr, 0.0),
+           torch.where(hit, (t * dz - (czw - oz)) * invr, 1.0))
+    ow = [torch.where(qwin, qrow[:, c], s)
+          for c, s in zip((Q_NX, Q_NY, Q_NZ), sow)]
+    if prep.n_boxes:
+        bn = _box_normal(prep.btab[torch.where(bwin, boxi, 0)], ox, oy, oz,
+                         dx, dy, dz)
+        ow = [torch.where(bwin, n_, o_) for n_, o_ in zip(bn, ow)]
+    # a medium scatters isotropically with a fixed normal
+    # (constant_medium.rs:70-78)
+    owx, owy, owz = (torch.where(mwin, m_, o_)
+                     for m_, o_ in zip((1.0, 0.0, 0.0), ow))
 
     # background on a miss (renderer.wgsl:233-239)
     inv_len = 1.0 / torch.sqrt(a)
@@ -472,6 +868,20 @@ def _bounce_plain(prep: Prepared, v: dict, u, u_mis, max_depth: int) -> None:
     px_ = ox + t * dx
     py_ = oy + t * dy
     pz_ = oz + t * dz
+
+    if prep.has_checker or prep.has_noise or prep.has_image:
+        # the winner's texture: kind, second color, scale and image (a
+        # medium's is solid; a box carries no image)
+        tex = (torch.where(hit, pick(Q_TEXK, BA_TEXK, J_TEXK, 0.0), 0.0),
+               pick(Q_C2R, BA_C2R, J_C2R, 0.0),
+               pick(Q_C2G, BA_C2G, J_C2G, 0.0),
+               pick(Q_C2B, BA_C2B, J_C2B, 0.0),
+               pick(Q_INVS, BA_INVS, J_INVS, 0.0),
+               torch.where(qwin, qrow[:, Q_IMG], torch.where(
+                   hit & swin, row[:, J_IMG], 0.0)))
+        car, cag, cab = _apply_textures(
+            prep, (car, cag, cab), tex, qwin, qrow, (ox, oy, oz, dx, dy, dz),
+            (owx, owy, owz), (px_, py_, pz_))
 
     d_dot_ow = dx * owx + dy * owy + dz * owz
     front = d_dot_ow < 0.0
@@ -664,7 +1074,10 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
         o, d = spawn_rays(prep.cam_u, px.to(torch.float32),
                           py.to(torch.float32), *u, prep.defocus,
                           sample=sample, sqrt_spp=prep.sqrt_spp)
-        new = dict(tm=0.0, ox=o[0], oy=o[1], oz=o[2], dx=d[0], dy=d[1],
+        # the ray's time of a moving scene (the_next_week/camera.rs:160-162)
+        tm = (uniforms4(slot.to(torch.int64), sample, 0, STREAM_TIME, key)[0]
+              if prep.moving else 0.0)
+        new = dict(tm=tm, ox=o[0], oy=o[1], oz=o[2], dx=d[0], dy=d[1],
                    dz=d[2], ax=1.0, ay=1.0, az=1.0, b=0.0, alive=1.0,
                    mid=1.0)
         for k, nv in new.items():
@@ -680,7 +1093,10 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
         if prep.mis:
             u_mis = (uniforms4(*counter, STREAM_MIS_A, key)
                      + uniforms4(*counter, STREAM_MIS_B, key)[:2])
-        _bounce_plain(prep, sub, u, u_mis, max_depth)
+        # medium m's uniform: word m % 4 of stream STREAM_MEDIA + m // 4
+        u_media = [w for g in range(-(-prep.n_media // 4))
+                   for w in uniforms4(*counter, STREAM_MEDIA + g, key)]
+        _bounce_plain(prep, sub, u, u_mis, u_media, max_depth)
         for k in _NAMES:
             v[k] = v[k].index_put((live,), sub[k])
     return torch.stack([v[k] for k in _NAMES])
@@ -688,14 +1104,24 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
 
 def persist_step_plain(state: torch.Tensor, slot: torch.Tensor,
                        tables: Prepared, seed: int, *, persist_iters: int,
-                       spp: int, max_depth: int,
-                       sample_offset: int = 0) -> None:
+                       spp: int, max_depth: int, sample_offset: int = 0,
+                       tile_bounds: torch.Tensor | None = None,
+                       tile_lanes: int = 0) -> None:
     """Plain twin of the persist kernel, vectorised over lanes: up to
-    ``persist_iters`` iterations of every lane that still has work (a
-    sample in flight or samples left).  Updates ``state`` in place."""
+    ``persist_iters`` iterations (with ``tile_bounds``, the bound of the
+    lane's tile of ``tile_lanes`` positions) of every lane that still has
+    work (a sample in flight or samples left).  Updates ``state`` in
+    place."""
     key = seed_key(seed)
-    for _ in range(persist_iters):
+    bound = None
+    if tile_bounds is not None:
+        pos = torch.arange(state.shape[1], device=state.device)
+        bound = tile_bounds.long()[pos // tile_lanes]
+        persist_iters = int(tile_bounds.max())
+    for it in range(persist_iters):
         work = ((state[R_MID] > 0.0) | (state[R_DONE] < float(spp)))
+        if bound is not None:
+            work = work & (it < bound)
         idx = work.nonzero().squeeze(1)
         if idx.numel() == 0:
             return
@@ -707,42 +1133,82 @@ def persist_step_plain(state: torch.Tensor, slot: torch.Tensor,
 def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
                  seed: int, *, persist_iters: int, spp: int, max_depth: int,
                  sample_offset: int = 0,
+                 tile_bounds: torch.Tensor | None = None, tile_lanes: int = 0,
                  work: torch.Tensor | None = None) -> None:
-    """One bounded persist launch over every lane, in place.  CUDA tensors
-    launch ``csrc/persist.cu``; CPU tensors run ``persist_step_plain``.
-    ``work`` as in ``megakernel.path_params`` (CUDA only)."""
+    """One bounded persist launch over every lane, in place: each lane runs
+    up to ``persist_iters`` iterations, or with ``tile_bounds`` (int32
+    [R / tile_lanes]) the bound of its tile of ``tile_lanes`` sorted
+    positions.  CUDA tensors launch ``csrc/persist.cu``; CPU tensors run
+    ``persist_step_plain``.  ``work`` as in ``megakernel.path_params``
+    (CUDA only)."""
     if state.device.type == "cpu":
         return persist_step_plain(state, slot, tables, seed,
                                   persist_iters=persist_iters, spp=spp,
                                   max_depth=max_depth,
-                                  sample_offset=sample_offset)
+                                  sample_offset=sample_offset,
+                                  tile_bounds=tile_bounds,
+                                  tile_lanes=tile_lanes)
     R = tables.n_lanes
     _cuda.require(state, "state", torch.float32, (N_STATE, R))
     _cuda.require(slot, "slot", torch.int32, (R,))
+    tb_ptr = None
+    if tile_bounds is not None:
+        if tile_lanes <= 0 or R % tile_lanes:
+            raise ValueError(f"tile_lanes {tile_lanes} must divide {R} lanes")
+        _cuda.require(tile_bounds, "tile_bounds", torch.int32,
+                      (R // tile_lanes,))
+        tb_ptr = tile_bounds.data_ptr()
     check_tables(tables)
     params = path_params(tables, seed, spp=spp, max_depth=max_depth,
                          sample_offset=sample_offset, work=work)
     _cuda.launch("persist", state.data_ptr(), slot.data_ptr(), R,
-                 ctypes.addressof(params), persist_iters, int(tables.mis))
+                 ctypes.addressof(params), persist_iters, int(tables.mis),
+                 int(tables.book2), tb_ptr, int(tile_lanes))
 
 
 # ------------------------------------------------------------ launch loop
 
 
+def tile_bounds_next(state: torch.Tensor, adaptive_bounds: tuple,
+                     n_tiles: int) -> torch.Tensor:
+    """Per-tile launch bounds for the next launch (pallas_wavefront.py:
+    692-714): a tile whose mid-sample lanes' origins span more than ``rel``
+    of all mid-sample lanes' extent (summed over the three axes) has
+    decohered and gets the short bound, so it returns to the sort sooner;
+    the others get the long one.  Returns int32 [n_tiles]."""
+    short_b, long_b, rel = adaptive_bounds
+    act = (state[R_MID] > 0.0).reshape(n_tiles, -1)
+    big = 3e38
+    exts = torch.zeros(n_tiles, dtype=torch.float32, device=state.device)
+    gext = torch.zeros((), dtype=torch.float32, device=state.device)
+    has = act.any(dim=1)
+    for k in (R_OX, R_OX + 1, R_OX + 2):
+        v = state[k].reshape(n_tiles, -1)
+        lo = torch.where(act, v, big)
+        hi = torch.where(act, v, -big)
+        exts = exts + torch.where(has, hi.amax(dim=1) - lo.amin(dim=1), 0.0)
+        gext = gext + (hi.max() - lo.min())
+    deco = exts > rel * torch.clamp(gext, min=1e-20)
+    return torch.where(deco, short_b, long_b).to(torch.int32)
+
+
 def _wavefront_pass_persist(tables: Prepared, seed: int, sample_offset: int,
                             *, spp: int, max_depth: int, persist_iters: int,
                             sort_rays: bool, sort_every: int = 1,
-                            step=persist_step, stats: dict | None = None
-                            ) -> torch.Tensor:
-    """Launch loop of one render pass (pallas_wavefront.py:639-785, non-image
-    scenes, uniform launch bounds).  Returns the banked radiance sums
-    [R, 3] in slot order.
+                            adaptive_bounds: tuple = (), step=persist_step,
+                            stats: dict | None = None) -> torch.Tensor:
+    """Launch loop of one render pass (pallas_wavefront.py:639-785).
+    Returns the banked radiance sums [R, 3] in slot order.
 
     Loops while any lane has work, at most ``spp * max_depth + 2`` launches;
     with ``sort_rays`` it permutes the lane state and slots by
     ``_persist_sort_perm`` after every ``sort_every``-th launch and scatters
-    the sums back to slot order at the end.  ``stats``, when given, receives
-    the launch count and (on CUDA) the seconds spent sorting."""
+    the sums back to slot order at the end.  With ``adaptive_bounds``
+    (short, long, rel) each launch bounds every tile of ``tables.tile_rows``
+    rows by ``tile_bounds_next`` of the state the previous launch (and its
+    sort) left, the first launch by the long bound; otherwise every lane
+    runs ``persist_iters``.  ``stats``, when given, receives the launch
+    count and (on CUDA) the seconds spent sorting."""
     R = tables.n_lanes
     dev = tables.geom.device
     state = torch.zeros((N_STATE, R), dtype=torch.float32, device=dev)
@@ -750,11 +1216,18 @@ def _wavefront_pass_persist(tables: Prepared, seed: int, sample_offset: int,
     max_launches = spp * max_depth + 2
     timed = stats is not None and dev.type == "cuda"
     events = []
+    tile_lanes = tables.tile_rows * TILE_LANES
+    n_tiles = R // tile_lanes
+    tb = None
+    if adaptive_bounds:
+        tb = torch.full((n_tiles,), adaptive_bounds[1], dtype=torch.int32,
+                        device=dev)
     g = 0
     while g < max_launches and bool(
             ((state[R_MID] > 0.0) | (state[R_DONE] < float(spp))).any()):
         step(state, slot, tables, seed, persist_iters=persist_iters,
-             spp=spp, max_depth=max_depth, sample_offset=sample_offset)
+             spp=spp, max_depth=max_depth, sample_offset=sample_offset,
+             tile_bounds=tb, tile_lanes=tile_lanes)
         if sort_rays and g % sort_every == 0:
             if timed:
                 events.append(torch.cuda.Event(enable_timing=True))
@@ -765,6 +1238,8 @@ def _wavefront_pass_persist(tables: Prepared, seed: int, sample_offset: int,
             if timed:
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()
+        if adaptive_bounds:
+            tb = tile_bounds_next(state, adaptive_bounds, n_tiles)
         g += 1
     sums = state[R_SX:R_SX + 3].T.contiguous()
     if sort_rays:
@@ -786,32 +1261,43 @@ def render_pass_wavefront(scene: Scene, cam, seed: int, *, width: int,
                           sample_offset: int = 0, mis: bool = False,
                           stratified: bool = False, sqrt_spp: int = 0,
                           step=persist_step, respawn_step=respawn_pass,
-                          device="cpu", stats: dict | None = None
+                          device, stats: dict | None = None
                           ) -> torch.Tensor:
-    """Whole-image render pass (pallas_wavefront.py:973-1038, non-image
-    scenes); returns the radiance SUM [H, W, 3] (the render.render_pass
-    contract).
+    """Whole-image render pass (pallas_wavefront.py:973-1073); returns the
+    radiance SUM [H, W, 3] (the render.render_pass contract).
 
-    Scenes on ``sorted_persist_route`` run the persist launch loop, sorting
-    their lanes between launches; ``step`` is the launch (``persist_step``,
-    or ``persist_step_plain`` on any device for comparisons with the
-    kernel), and ``stats`` receives the loop's counts.  The others go to the
-    respawn megakernel K3 (``render_pass_megakernel``) with ``respawn_step``
-    as its pass."""
-    if not sorted_persist_route(scene, width, height):
+    Image-textured scenes take the image route: the persist launch loop at
+    ``wavefront_tile_rows``, sorted with per-tile adaptive bounds when
+    ``ray_sort_heuristic`` holds, else unsorted at the uniform bound of
+    ``image_route_iters``.  Other scenes on ``sorted_persist_route`` run the
+    sorted persist loop at ``persist_plain_iters``.  In both, ``step`` is
+    the launch (``persist_step``, or ``persist_step_plain`` on any device
+    for comparisons with the kernel), and ``stats`` receives the loop's
+    counts.  The rest go to the respawn megakernel K3
+    (``render_pass_megakernel``) with ``respawn_step`` as its pass."""
+    image = "image" in scene.features
+    if not image and not sorted_persist_route(scene, width, height):
         return render_pass_megakernel(
             scene, cam, seed, width=width, height=height, spp=spp,
             max_depth=max_depth, sample_offset=sample_offset, mis=mis,
             stratified=stratified, sqrt_spp=sqrt_spp, device=device,
             step=respawn_step)
+    if image:
+        tile_rows = wavefront_tile_rows(scene)
+        sort = ray_sort_heuristic(scene, slot_lane_count(width, height))
+        iters = image_route_iters(scene, sort)
+        sort_every = persist_sort_every(PERSIST_SORT_ITERS if sort else 1)
+        adaptive = persist_adaptive_bounds(PERSIST_SORT_ITERS) if sort else ()
+    else:
+        tile_rows = respawn_tile_rows(scene)
+        sort, iters = True, persist_plain_iters(spp)
+        sort_every, adaptive = persist_sort_every(iters), ()
     tables = prepare_megakernel_cached(
-        scene, cam, width=width, height=height,
-        tile_rows=respawn_tile_rows(scene), mis=mis, stratified=stratified,
-        sqrt_spp=sqrt_spp, device=device)
-    iters = persist_plain_iters(spp)
+        scene, cam, width=width, height=height, tile_rows=tile_rows, mis=mis,
+        stratified=stratified, sqrt_spp=sqrt_spp, device=device)
     sums = _wavefront_pass_persist(
         tables, seed, sample_offset, spp=spp, max_depth=max_depth,
-        persist_iters=iters, sort_rays=True,
-        sort_every=persist_sort_every(iters), step=step, stats=stats)
+        persist_iters=iters, sort_rays=sort, sort_every=sort_every,
+        adaptive_bounds=adaptive, step=step, stats=stats)
     idx = unswizzle_index_on(width, height, sums.device)
     return sums[idx].reshape(height, width, 3)

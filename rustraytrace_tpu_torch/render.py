@@ -3,22 +3,25 @@
 
 ``render_image`` runs a host loop of passes and accumulates (RGB sum,
 sample count), so every pass boundary is a checkpoint; ``render_pass``
-traces one pass.  It routes as the JAX package does: scenes on the sorted
-persist route (>= 256 primitives, at most 2 Mi slot lanes) run the persist
-launch loop (K2), every other scene one launch of the respawn megakernel
-(K3).  Backends:
+traces one pass.  It routes as the JAX package does: image-textured scenes
+take the image route and scenes on the sorted persist route (>= 256
+primitives, at most 2 Mi slot lanes) the persist launch loop (K2); every
+other scene runs one launch of the respawn megakernel (K3).  Backends:
 
-* ``"wavefront"`` (auto for ``path`` on a CUDA device) and ``"megakernel"``
-  (auto for ``mis``) — the CUDA kernels.  The two are one backend under two
-  names, kept as the JAX package names them: both route by the scene as
-  above, and ``"megakernel"`` does not force K3;
+* ``"wavefront"`` (auto for ``path`` and for image-textured scenes on a
+  CUDA device) and ``"megakernel"`` (auto for other ``mis`` scenes) — the
+  CUDA kernels.  The two are one backend under two names, kept as the JAX
+  package names them: both route by the scene as above, and
+  ``"megakernel"`` does not force K3;
 * ``"plain"`` — the plain PyTorch twin of the kernel the route uses (auto
   on the CPU; on a CUDA device only when asked for, to compare against the
   kernel).
 
-Unlike the JAX package there is no fallback: a kernel that fails to build
-or launch raises, ``device="cuda"`` without a card raises, and nothing moves
-to the CPU or to the plain version on its own.
+The entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU (``device="cpu"``).  Unlike the JAX package there is no
+fallback: a kernel that fails to build or launch raises, ``device="cuda"``
+without a card raises, and nothing moves to the CPU or to the plain version
+on its own.
 """
 
 from __future__ import annotations
@@ -63,11 +66,13 @@ def finalize_image(accum_sum: np.ndarray, spp_total: int) -> np.ndarray:
 
 
 def resolve_backend(scene: Scene, integrator: str = "path",
-                    backend: str = "auto", device="cpu") -> str:
+                    backend: str = "auto", device="cuda") -> str:
     """'auto' follows the JAX package's rule (render.py:248-282 there): on a
-    CUDA device ``path`` -> ``"wavefront"`` and ``mis`` -> ``"megakernel"``;
-    on the CPU ``"plain"``.  Scenes and integrators the port does not cover
-    raise ``NotImplementedError`` (see ops.megakernel.megakernel_eligible)."""
+    CUDA device ``path`` and image-textured scenes -> ``"wavefront"``, other
+    ``mis`` scenes -> ``"megakernel"``; on the CPU ``"plain"``.  Scenes and
+    integrators the port does not cover raise ``NotImplementedError`` (see
+    ops.megakernel.megakernel_eligible), and ``device="cuda"`` without a
+    card raises ``RuntimeError``."""
     megakernel_eligible(scene, integrator)
     if backend != "auto":
         if backend not in BACKENDS:
@@ -75,7 +80,9 @@ def resolve_backend(scene: Scene, integrator: str = "path",
         return backend
     if _device(device).type != "cuda":
         return "plain"
-    return "megakernel" if integrator == "mis" else "wavefront"
+    if integrator == "mis" and "image" not in scene.features:
+        return "megakernel"
+    return "wavefront"
 
 
 def effective_spp_per_pass(cfg: RenderConfig, spp_total: int,
@@ -97,7 +104,7 @@ def render_pass(scene: Scene, cam: CameraParams, seed: int, *, width: int,
                 height: int, spp: int, max_depth: int,
                 integrator: str = "path", sample_offset: int = 0,
                 stratified: bool = False, sqrt_spp: int = 0,
-                backend: str = "auto", device="cpu",
+                backend: str = "auto", device="cuda",
                 stats: Optional[dict] = None) -> torch.Tensor:
     """Trace ``spp`` samples per pixel, absolute sample indices
     ``sample_offset + [0, spp)`` (stratified over a ``sqrt_spp`` grid when
@@ -122,7 +129,7 @@ def render_pass(scene: Scene, cam: CameraParams, seed: int, *, width: int,
 def render_image(scene: Scene, cfg: RenderConfig, *,
                  integrator: str = "path", progress=None,
                  accum_state: Optional[dict] = None, backend: str = "auto",
-                 on_pass=None, device="cpu"):
+                 on_pass=None, device="cuda"):
     """Full render: host pass loop over spp batches.  Returns
     (image_u8 [H, W, 3], {"accum": sum [H, W, 3], "spp_done": n});
     ``accum_state`` from an earlier call resumes the accumulation.  A

@@ -55,7 +55,7 @@ def test_camera_bit_equal(name, width):
     _, cfg, _ = getattr(models, name)(dict(image_width=width))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jcam = jax_derive_camera(jcfg)
-    cam = derive_camera(cfg)
+    cam = derive_camera(cfg, "cpu")
     for f in CAM_ARRAYS:
         have = getattr(cam, f)
         assert have.dtype == torch.float32
@@ -80,25 +80,53 @@ def test_scene_from_numpy_bit_equal(name):
     _assert_scene_equal(jscene, scene_from_numpy(_jax_fields(jscene)))
 
 
-@pytest.mark.parametrize("name,sub_slice", [
-    ("book2_bouncing_spheres", "K2(b)"), ("book2_simple_light", "K2(c)"),
-    ("book2_cornell_smoke", "K2(c)")])
-def test_unported_features_raise_naming_the_sub_slice(name, sub_slice):
-    jscene, _, _ = jmodels.get_scene(name, dict(image_width=32))
+def _unported_scene(case):
+    """A JAX-built scene (converted to the port) with a feature the port's
+    kernels do not cover yet."""
+    from rustraytrace_tpu.scene import SceneBuilder as JaxSceneBuilder
+
+    b = JaxSceneBuilder()
+    if case == "quads_32":
+        for k in range(32):
+            b.add_quad((k, 0, 0), (1, 0, 0), (0, 1, 0), b.lambertian((.5,) * 3))
+        return b.build(), "path"
+    if case == "fog_sphere_mis":
+        b.add_sphere((0, 0, 0), 1.0, b.isotropic((.5,) * 3))
+        b.add_light_sphere((0, 5, 0), 1.0)
+        return b.build(), "mis"
+    b.add_medium_box((0, 0, 0), (165, 165, 165), 0.01, b.isotropic((1.,) * 3))
+    b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), b.lambertian((.5,) * 3))
+    b.add_light_quad((213, 554, 227), (130, 0, 0), (0, 0, 105))
+    return b.build(), "mis"
+
+
+@pytest.mark.parametrize("case,sub_slice", [
+    ("quads_32", "K2(c) quad clusters"), ("fog_sphere_mis", "K2(c) media"),
+    ("smoke_box_mis", "K2(c) media")])
+def test_unported_features_raise_naming_the_sub_slice(case, sub_slice):
+    """What stays unported: SAH-clustered quads (32 or more) and the
+    NEE/MIS estimator's isotropic branch (media under 'mis')."""
+    jscene, integ = _unported_scene(case)
     scene = scene_from_numpy(_jax_fields(jscene))
     with pytest.raises(NotImplementedError, match=sub_slice.replace(
             "(", r"\(").replace(")", r"\)")):
-        megakernel_eligible(scene)
+        megakernel_eligible(scene, integ)
 
 
 def test_catalog_ports_book1_and_names_the_rest():
+    """The whole reference catalog is ported: the registry holds every JAX
+    scene name and Book-2 number (each scene is held bit-equal in
+    test_torch_book2.py), and names resolve as in the JAX package."""
+    assert set(models.SCENES) == set(jmodels.SCENES)
+    assert set(models.BOOK2_SCENES) == set(jmodels.scenes.BOOK2_SCENES)
+    assert not hasattr(models, "NOT_PORTED")
     n_jax = jmodels.get_scene("in_one_weekend")[0].sph_center.shape[0]
     assert models.get_scene("in_one_weekend")[0].sph_center.shape[0] == n_jax
-    for name in models.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            models.get_scene(name)
-    ported = set(models.SCENES) | set(models.NOT_PORTED)
-    assert set(jmodels.SCENES) <= ported
+    for alias in ("book2", "The Next Week", "nextweek"):
+        assert models.normalize_scene_name(alias) == "the_next_week"
+    assert models.normalize_scene_name("book2-earth") == "book2_earth"
+    with pytest.raises(KeyError):
+        models.get_scene("no_such_scene")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -112,6 +140,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import rustraytrace_tpu_torch.ops._cuda\n"
         "import rustraytrace_tpu_torch.models\n"
         "rustraytrace_tpu_torch.models.book3_cornell_box()\n"
+        "rustraytrace_tpu_torch.models.get_scene('the_next_week')\n"
         "import rustraytrace_tpu_torch.utils.image_io\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rustraytrace_tpu' or m.startswith('rustraytrace_tpu.')]\n"

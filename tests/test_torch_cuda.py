@@ -56,7 +56,7 @@ def test_sphere_hit_kernel_matches_plain(cuda):
 @pytest.mark.cuda
 def test_persist_launch_matches_plain_step(cuda):
     scene, cfg, _ = models.book1_random_spheres(dict(image_width=160))
-    tables = mk.prepare_megakernel(scene, derive_camera(cfg), width=160,
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=160,
                                    height=cfg.image_height, device=cuda)
     st_k = torch.zeros((wf.N_STATE, tables.n_lanes), device=cuda)
     st_p = st_k.clone()
@@ -72,7 +72,7 @@ def test_persist_launch_matches_plain_step(cuda):
 @pytest.mark.cuda
 def test_kernel_render_bitwise_invariant_to_sort(cuda):
     scene, cfg, _ = models.book1_random_spheres(dict(image_width=96))
-    tables = mk.prepare_megakernel(scene, derive_camera(cfg), width=96,
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=96,
                                    height=cfg.image_height, device=cuda)
     kw = dict(spp=8, max_depth=50, persist_iters=4)
     on = wf._wavefront_pass_persist(tables, 5, 0, sort_rays=True, **kw)
@@ -103,7 +103,7 @@ def _cornell_tables(cuda, width, spp):
     scene, cfg, _ = models.book3_cornell_box(
         dict(image_width=width, samples_per_pixel=spp))
     n = int(np.sqrt(spp))
-    return mk.prepare_megakernel(scene, derive_camera(cfg), width=width,
+    return mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=width,
                                  height=cfg.image_height, mis=True,
                                  stratified=True, sqrt_spp=n, device=cuda)
 
@@ -130,14 +130,15 @@ def test_respawn_pass_kernel_matches_plain(cuda, name):
     scene, cfg, integ = models.get_scene(name, dict(image_width=64))
     mis = integ == "mis"
     tables = mk.prepare_megakernel(
-        scene, derive_camera(cfg), width=64, height=cfg.image_height,
+        scene, derive_camera(cfg, "cpu"), width=64, height=cfg.image_height,
         mis=mis, stratified=cfg.stratified, sqrt_spp=2 if mis else 0,
         device=cuda)
     before = _cuda.launch_counts()["megakernel"]
     k3 = mk.respawn_pass(tables, 9, 4, 4, 50)
     assert _cuda.launch_counts()["megakernel"] == before + 1
     # the counting instance computes the same sums
-    work = torch.zeros(3, dtype=torch.int64, device=cuda)
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                       device=cuda)
     k3_counted = mk.respawn_pass(tables, 9, 4, 4, 50, work=work)
     plain = mk.respawn_pass_plain(tables, 9, 4, 4, 50)
     k2 = wf._wavefront_pass_persist(tables, 9, 4, spp=4, max_depth=50,
@@ -163,7 +164,7 @@ def test_respawn_pass_two_level_cull_matches_plain(cuda):
                        rng.uniform(0.1, 0.3, 1500)):
         b.add_sphere((float(x), float(r), float(z)), float(r), mat)
     cfg = RenderConfig(image_width=96)
-    tables = mk.prepare_megakernel(b.build(), derive_camera(cfg), width=96,
+    tables = mk.prepare_megakernel(b.build(), derive_camera(cfg, "cpu"), width=96,
                                    height=cfg.image_height, device=cuda)
     assert tables.n_sclusters > 1
     k3 = mk.respawn_pass(tables, 3, 0, 4, 50)
@@ -184,3 +185,52 @@ def test_wrappers_reject_bad_tensors(cuda):
         hit.sphere_hit(o, d, t, sph.cpu(), quad, False)
     with pytest.raises(ValueError, match="shape"):
         hit.sphere_hit(o, d, t[:10], sph, quad, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["the_next_week", "book2_cornell_smoke",
+                                  "book2_earth", "book2_bouncing_spheres",
+                                  "book2_perlin_spheres"])
+def test_book2_persist_launch_matches_plain_step(cuda, name):
+    """One K2 launch over the Book-2 features (motion, checker, boxes,
+    media, Perlin marble, image texels) against the plain step, bitwise,
+    with per-tile launch bounds."""
+    scene, cfg, _ = models.get_scene(name, dict(image_width=96))
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"),
+                                   width=96, height=cfg.image_height,
+                                   tile_rows=8, device=cuda)
+    assert tables.book2
+    R = tables.n_lanes
+    st_k = torch.zeros((wf.N_STATE, R), device=cuda)
+    st_p = st_k.clone()
+    slot = torch.arange(R, dtype=torch.int32, device=cuda)
+    tb = torch.tensor([2 + 3 * (k % 3) for k in range(R // 1024)],
+                      dtype=torch.int32, device=cuda)
+    kw = dict(persist_iters=8, spp=4, max_depth=min(cfg.max_depth, 12),
+              sample_offset=1)
+    for bounds in (None, tb):
+        wf.persist_step(st_k, slot, tables, 11, tile_bounds=bounds,
+                        tile_lanes=1024, **kw)
+        wf.persist_step_plain(st_p, slot, tables, 11, tile_bounds=bounds,
+                              tile_lanes=1024, **kw)
+    assert float(st_p[wf.R_DONE].sum()) > 0
+    assert torch.equal(st_k, st_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["book2_cornell_smoke", "book2_simple_light",
+                                  "book2_checkered_spheres"])
+def test_book2_respawn_pass_kernel_matches_plain(cuda, name):
+    """K3 with the Book-2 features against its plain twin and the unsorted
+    K2 loop, bitwise."""
+    scene, cfg, _ = models.get_scene(name, dict(image_width=64))
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"),
+                                   width=64, height=cfg.image_height,
+                                   device=cuda)
+    k3 = mk.respawn_pass(tables, 9, 4, 4, 12)
+    plain = mk.respawn_pass_plain(tables, 9, 4, 4, 12)
+    k2 = wf._wavefront_pass_persist(tables, 9, 4, spp=4, max_depth=12,
+                                    persist_iters=5, sort_rays=False)
+    assert float(plain.sum()) > 0
+    assert torch.equal(k3, plain)
+    assert torch.equal(k3, k2)

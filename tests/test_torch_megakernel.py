@@ -33,8 +33,8 @@ def test_respawn_pass_equals_unsorted_persist_loop(name, spp):
         name, dict(image_width=24, samples_per_pixel=spp))
     n = int(np.sqrt(spp)) if cfg.stratified else 0
     tables = mk.prepare_megakernel(
-        scene, derive_camera(cfg), width=24, height=cfg.image_height,
-        mis=integ == "mis", stratified=cfg.stratified, sqrt_spp=n)
+        scene, derive_camera(cfg, "cpu"), width=24, height=cfg.image_height,
+        mis=integ == "mis", stratified=cfg.stratified, sqrt_spp=n, device="cpu")
     k3 = mk.respawn_pass(tables, 13, 5, spp, 8)
     k2 = wf._wavefront_pass_persist(tables, 13, 5, spp=spp, max_depth=8,
                                     persist_iters=3, sort_rays=False)
@@ -63,7 +63,7 @@ def test_cornell_render_image_matches_jax_xla(name, spp):
         height=w, spp=spp, max_depth=depth, integrator=jinteg,
         backend="xla", chunk=576, stratified=cfg.stratified,
         sqrt_spp=n)) / spp
-    img_u8, state = render.render_image(scene, cfg, integrator=integ)
+    img_u8, state = render.render_image(scene, cfg, integrator=integ, device="cpu")
     assert state["spp_done"] == spp and img_u8.shape == (w, w, 3)
     got = state["accum"] / spp
     assert np.all(np.isfinite(got))
@@ -83,7 +83,7 @@ def test_cornell_render_image_matches_jax_xla(name, spp):
 def test_stratified_render_counts_a_square_number_of_samples():
     scene, cfg, integ = models.book3_cornell_box(
         dict(image_width=8, samples_per_pixel=10, max_depth=2))
-    _, state = render.render_image(scene, cfg, integrator=integ)
+    _, state = render.render_image(scene, cfg, integrator=integ, device="cpu")
     assert state["spp_done"] == 9
 
 
@@ -94,8 +94,8 @@ def test_routes_follow_the_jax_package():
     # the slice's main path: one K3 pass over 19x19 blocks of 1024 slots
     assert wf.slot_lane_count(600, 600) == 369_664
     tables = mk.prepare_megakernel(
-        cornell, derive_camera(models.book3_cornell_box()[1]), width=600,
-        height=600, mis=True, stratified=True, sqrt_spp=10)
+        cornell, derive_camera(models.book3_cornell_box()[1], "cpu"), width=600,
+        height=600, mis=True, stratified=True, sqrt_spp=10, device="cpu")
     assert tables.n_lanes == 372_736
     assert (tables.n_quads, tables.n_lights, tables.unroll) == (12, 2, 1)
     assert not wf.sorted_persist_route(cornell, 600, 600)

@@ -79,10 +79,10 @@ def test_quad_prepared_tables_equal_jax(name):
         jscene, jax_derive_camera(jcfg), width=w, height=h, spp=16,
         max_depth=8, interpret=True, segment=True, mis=mis,
         stratified=cfg.stratified, sqrt_spp=4 if cfg.stratified else 0)
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=w,
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=w,
                                  height=h, mis=mis,
                                  stratified=cfg.stratified,
-                                 sqrt_spp=4 if cfg.stratified else 0)
+                                 sqrt_spp=4 if cfg.stratified else 0, device="cpu")
     np.testing.assert_array_equal(prep.geom.numpy(),
                                   np.asarray(arrays["tab"]).T)
     for k in ("qtab", "ltab", "cam_u", "bg", "clb", "cls"):
@@ -107,8 +107,8 @@ def test_quad_closest_hit_matches_jax_hit_quads():
     builds the frames in its own float order inside hit_quads)."""
     jscene, _, _ = jmodels.book2_cornell_box()
     scene, cfg, _ = models.book2_cornell_box(dict(image_width=32))
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=32,
-                                 height=32)
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=32,
+                                 height=32, device="cpu")
     o, d = _rays_in_box(4096, 1)
     n = o.shape[0]
     t_ref, i_ref, any_ref = (np.asarray(x) for x in jinter.hit_quads(
@@ -146,8 +146,8 @@ def test_light_pdf_matches_jax():
     1e-5 relative (JAX normalises d with sqrt, the port with 1/sqrt)."""
     jscene, _, _ = jmodels.book3_cornell_box()
     scene, cfg, _ = models.book3_cornell_box(dict(image_width=32))
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=32,
-                                 height=32, mis=True)
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=32,
+                                 height=32, mis=True, device="cpu")
     p, d = _points_and_dirs(4096, 2)
     ref = np.asarray(jint._light_pdf_value(jnp.asarray(p), jnp.asarray(d),
                                            jscene))
@@ -164,8 +164,8 @@ def test_quad_light_samples_match_jax():
     to within 1 ulp of the 555-unit coordinates."""
     jscene, _, _ = jmodels.book3_cornell_box()
     scene, cfg, _ = models.book3_cornell_box(dict(image_width=32))
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=32,
-                                 height=32, mis=True)
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=32,
+                                 height=32, mis=True, device="cpu")
     rng = np.random.default_rng(3)
     n = 2048
     p = rng.uniform(20.0, 535.0, (n, 3)).astype(np.float32)
@@ -188,8 +188,8 @@ def test_sphere_light_samples_inside_the_cone():
     jscene = jb.build()
     scene = b.build()
     _, cfg, _ = models.book3_cornell_box(dict(image_width=32))
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=32,
-                                 height=32, mis=True)
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=32,
+                                 height=32, mis=True, device="cpu")
     rng = np.random.default_rng(4)
     n = 4096
     p = rng.uniform(20.0, 535.0, (n, 3)).astype(np.float32)
@@ -208,9 +208,9 @@ def test_stratified_spawn_matches_jax_generate_rays():
     to the n x n grid) vs JAX generate_rays with _strat_tuple; 1e-5."""
     jscene, jcfg, _ = jmodels.book3_cornell_box(dict(image_width=48))
     scene, cfg, _ = models.book3_cornell_box(dict(image_width=48))
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=48,
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=48,
                                  height=48, mis=True, stratified=True,
-                                 sqrt_spp=10)
+                                 sqrt_spp=10, device="cpu")
     rng = np.random.default_rng(5)
     n = 4096
     px = rng.integers(0, 48, n).astype(np.float32)

@@ -39,14 +39,14 @@ def _all_miss_scene():
 def test_sample_accounting_exact():
     scene, cfg = _all_miss_scene()
     h, w, spp = cfg.image_height, cfg.image_width, 32
-    cam = derive_camera(cfg)
+    cam = derive_camera(cfg, "cpu")
     acc = wf.render_pass_wavefront(scene, cam, 3, width=w, height=h,
-                                   spp=spp, max_depth=8)
+                                   spp=spp, max_depth=8, device="cpu")
     expect = np.broadcast_to(np.float32(spp) * np.float32(BG), (h, w, 3))
     np.testing.assert_array_equal(acc.numpy(), expect)
     # lane bookkeeping after the launch loop: every lane did exactly spp
     # samples and has none in flight
-    tables = mk.prepare_megakernel(scene, cam, width=w, height=h)
+    tables = mk.prepare_megakernel(scene, cam, width=w, height=h, device="cpu")
     state = torch.zeros((wf.N_STATE, tables.n_lanes))
     slot = torch.arange(tables.n_lanes, dtype=torch.int32)
     for _ in range(spp * 8 + 2):
@@ -60,8 +60,8 @@ def test_sample_accounting_exact():
 
 def test_sums_bitwise_invariant_to_sort_and_launch_bound():
     scene, cfg, _ = models.book1_random_spheres(dict(image_width=64))
-    tables = mk.prepare_megakernel(scene, derive_camera(cfg), width=64,
-                                   height=cfg.image_height)
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=64,
+                                   height=cfg.image_height, device="cpu")
     runs = {}
     for sort in (True, False):
         for iters in (4, 16):
@@ -84,7 +84,7 @@ def test_camera_spawn_matches_jax_generate_rays():
         "focus_dist")})
     tables = mk.prepare_megakernel(
         models.book1_random_spheres(dict(image_width=64))[0],
-        derive_camera(cfg), width=64, height=cfg.image_height)
+        derive_camera(cfg, "cpu"), width=64, height=cfg.image_height, device="cpu")
     px, py, rows = jwf._slot_pixels(64, cfg.image_height, 32)
     n = rows * 128
     u = np.random.default_rng(0).uniform(size=(n, 5)).astype(np.float32)
@@ -119,8 +119,8 @@ def _cull_tables(name):
     else:
         scene = _field_scene(1500, 4)
         cfg = RenderConfig(image_width=32)
-    return mk.prepare_megakernel(scene, derive_camera(cfg), width=32,
-                                 height=cfg.image_height)
+    return mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=32,
+                                 height=cfg.image_height, device="cpu")
 
 
 def _ray_args(o, d):

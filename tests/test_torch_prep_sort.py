@@ -41,8 +41,8 @@ def test_prepared_tables_equal_jax(native_lib, name):
     arrays, st = jmk.prepare_megakernel(
         jscene, jax_derive_camera(jcfg), width=w, height=h, spp=8,
         max_depth=8, interpret=True, segment=True)
-    prep = mk.prepare_megakernel(scene, derive_camera(cfg), width=w,
-                                 height=h)
+    prep = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"), width=w,
+                                 height=h, device="cpu")
     geom = np.asarray(arrays["tab"]).T  # JAX: column-major geometry
     np.testing.assert_array_equal(prep.geom.numpy(), geom)
     n = geom.shape[0]

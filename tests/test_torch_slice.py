@@ -38,7 +38,7 @@ def test_render_image_matches_jax_xla(name):
         jscene, jax_derive_camera(jcfg), jax.random.key(0), width=W,
         height=h, spp=SPP, max_depth=DEPTH, backend="xla",
         chunk=4096)) / SPP
-    img_u8, state = render.render_image(scene, cfg)
+    img_u8, state = render.render_image(scene, cfg, device="cpu")
     assert state["spp_done"] == SPP and img_u8.shape == (h, W, 3)
     got = state["accum"] / SPP
     assert np.all(np.isfinite(got))
@@ -76,13 +76,13 @@ def test_passes_resume_and_route():
     with pytest.raises(NotImplementedError, match="NEE lights"):
         render.resolve_backend(scene, "mis")
     seen = []
-    _, full = render.render_image(scene, cfg, on_pass=seen.append)
+    _, full = render.render_image(scene, cfg, on_pass=seen.append, device="cpu")
     assert [s["spp_done"] for s in seen] == [4, 8]
     # resuming from the first pass boundary gives the same sums: the second
     # pass draws the same samples (absolute indices 4..7) either way
     _, resumed = render.render_image(
         scene, cfg, accum_state={"accum": seen[0]["accum"].numpy(),
-                                 "spp_done": 4})
+                                 "spp_done": 4}, device="cpu")
     np.testing.assert_array_equal(resumed["accum"], full["accum"])
 
 
