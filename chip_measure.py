@@ -12,16 +12,27 @@ numbers behind PERF.md's findings:
    kernel alone over ``--reps`` reps, then one profiled end-to-end call;
 6. the Book-2 final scene (``get_scene("the_next_week")``, 400x400, 250
    spp, depth 4) through ``render.render_image``: warm wall time over
-   ``--reps`` reps, the launch loop's counts, then one profiled call.
+   ``--reps`` reps, the launch loop's counts, then one profiled call;
+7. the head-to-head of the three pass structures (``--heads`` runs only
+   this item): the monolithic megakernel K4 against the respawn megakernel
+   K3 on the eight cases of ``scripts/bench_backends.py`` at their
+   configurations (the kernels alone, same tables and seed, in the order
+   K3, K4, K4, K3, each ``--reps`` launches), the per-bounce segment loop
+   K5 against the persist loop on the two cases of
+   ``scripts/bench_persist.py`` (``render_pass_wavefront`` end to end,
+   persist, segments, segments, persist; one profiled segment pass), and
+   K3 on 1,024 quads with the quad-cluster cull against the scan of every
+   quad row.
 
-    python3 chip_measure.py [--reps 3] [--spp 1024]
+    python3 chip_measure.py [--reps 3] [--spp 1024] [--heads]
     python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
 ``chip_smoke.py`` drives it.  ``--ab DIR`` instead times the flagship
 (``render_pass`` and one K2 launch), the Book-3 Cornell box
-(``render_image`` and one K3 pass) and the 4K flagship pass
-(``render_pass``, K3) with the package of the checkout DIR
+(``render_image`` and one K3 pass), the 4K flagship pass
+(``render_pass``, K3) and the final scene (``render_image``) with the
+package of the checkout DIR
 and with this one, in the order DIR, this, this, DIR, each in its own
 process, and prints one JSON line per process.  Prints the card's name,
 power limit and SM clock first.  Needs CUDA; imports nothing of JAX.
@@ -99,7 +110,168 @@ def _ab_child(reps: int) -> dict:
     out["flagship_4k_render_pass_s"] = walls(lambda: render.render_pass(
         s4, cam4, c4.seed, width=3840, height=2160, spp=16, max_depth=50,
         device=dev))
+    s9, c9, _ = models.get_scene("the_next_week")
+    out["final_render_image_s"] = walls(lambda: render.render_image(
+        s9, c9, device=dev))
     return out
+
+
+# scripts/bench_backends.py CASES: scene, overrides, spp, depth, mis
+BACKEND_CASES = {
+    "flagship": ("book1_random_spheres",
+                 dict(image_width=1200, samples_per_pixel=64, max_depth=50),
+                 64, 50, False),
+    "cornell_d20": ("book2_cornell_box",
+                    dict(image_width=400, samples_per_pixel=64, max_depth=20),
+                    64, 20, False),
+    "smoke": ("book2_cornell_smoke",
+              dict(image_width=400, samples_per_pixel=64, max_depth=50),
+              64, 50, False),
+    "bouncing": ("book2_bouncing_spheres",
+                 dict(image_width=400, samples_per_pixel=64, max_depth=50),
+                 64, 50, False),
+    "perlin": ("book2_perlin_spheres",
+               dict(image_width=400, samples_per_pixel=64, max_depth=50),
+               64, 50, False),
+    "quads_d10": ("book2_quads",
+                  dict(image_width=400, samples_per_pixel=64, max_depth=10),
+                  64, 10, False),
+    "field10k": ("sphere_field_10k",
+                 dict(image_width=1200, samples_per_pixel=64, max_depth=50),
+                 64, 50, False),
+    "cornell_mis": ("book3_cornell_box",
+                    dict(image_width=600, samples_per_pixel=64, max_depth=50),
+                    64, 50, True),
+}
+# scripts/bench_persist.py CASES: scene, overrides, spp, depth
+PERSIST_CASES = {
+    "earth": ("book2_earth",
+              dict(image_width=800, samples_per_pixel=64, max_depth=50),
+              64, 50),
+    "final": ("book2_final_scene",
+              dict(image_width=800, samples_per_pixel=64, max_depth=40),
+              64, 40),
+}
+
+
+def _heads(reps: int) -> None:
+    """Item 7: K4 vs K3, K5 vs the persist loop, the quad cull vs the
+    scan of every quad row."""
+    import dataclasses
+
+    import torch
+
+    from rustraytrace_tpu_torch import RenderConfig, SceneBuilder, models
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+    from chip_smoke import _torch_scenes
+
+    dev = torch.device("cuda")
+
+    def event_ms(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for case, (name, over, spp, depth, mis) in BACKEND_CASES.items():
+        scene, cfg, _ = models.get_scene(name, over)
+        w, h = cfg.image_width, cfg.image_height
+        tab = mk.prepare_megakernel(
+            scene, derive_camera(cfg, device=dev), width=w, height=h,
+            tile_rows=mk.respawn_tile_rows(scene), mis=mis, device=dev)
+        k3 = lambda: mk.respawn_pass(tab, cfg.seed, 0, spp, depth)  # noqa
+        k4 = lambda: mk.mono_pass(tab, cfg.seed, 0, spp, depth)  # noqa
+        same = bool(torch.equal(k3(), k4()))  # also the warm-up
+        t = [event_ms(f) for f in (k3, k4, k4, k3)]
+        k3_ms, k4_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        paths = w * h * spp
+        print(json.dumps({
+            "item": "K4 vs K3", "case": case, "scene": name, "width": w,
+            "height": h, "spp": spp, "max_depth": depth, "mis": mis,
+            "k3_ms": [round(t[0], 3), round(t[3], 3)],
+            "k4_ms": [round(t[1], 3), round(t[2], 3)],
+            "k3_mpaths_s": round(paths / k3_ms / 1e3, 2),
+            "k4_mpaths_s": round(paths / k4_ms / 1e3, 2),
+            "k4_over_k3": round(k4_ms / k3_ms, 4),
+            "sums_bitwise_equal": same}), flush=True)
+
+    for case, (name, over, spp, depth) in PERSIST_CASES.items():
+        scene, cfg, _ = models.get_scene(name, over)
+        w, h = cfg.image_width, cfg.image_height
+        cam = derive_camera(cfg, device=dev)
+
+        def run(seg: bool, stats=None):
+            return wf.render_pass_wavefront(
+                scene, cam, cfg.seed, width=w, height=h, spp=spp,
+                max_depth=depth, per_bounce_segments=seg, device=dev,
+                stats=stats)
+
+        same = bool(torch.equal(run(False), run(True)))  # also the warm-up
+        for seg in (False, True, True, False):
+            stats: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(seg, stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(json.dumps({
+                "item": "K5 vs persist", "case": case, "scene": name,
+                "width": w, "height": h, "spp": spp, "max_depth": depth,
+                "route": "segments (K5)" if seg else "persist (K2)",
+                "wall_s": round(wall, 4),
+                "mpaths_s": round(w * h * spp / wall / 1e6, 2),
+                "launches": stats["launches"],
+                "sums_bitwise_equal": same}), flush=True)
+        _profiled(f"{case} segments (K5) end to end", lambda: run(True))
+
+    ts = _torch_scenes()
+    scene = ts.quad_field(SceneBuilder, 1024)
+    cfg = RenderConfig(image_width=400, samples_per_pixel=64, max_depth=8,
+                       **ts.FIELD_INSIDE_CFG)
+    tab = mk.prepare_megakernel(scene, derive_camera(cfg, device=dev),
+                                width=400, height=400, device=dev)
+    lin = dataclasses.replace(tab, n_qclusters=0)
+    cull = lambda: mk.respawn_pass(tab, cfg.seed, 0, 64, 8)  # noqa: E731
+    scan = lambda: mk.respawn_pass(lin, cfg.seed, 0, 64, 8)  # noqa: E731
+    differ = int((cull() != scan()).any(dim=1).sum())
+    t = [event_ms(f) for f in (cull, scan, scan, cull)]
+    print(json.dumps({
+        "item": "quad cull", "quads": 1024, "clusters": tab.n_qclusters,
+        "width": 400, "spp": 64, "max_depth": 8,
+        "cull_ms": [round(t[0], 3), round(t[3], 3)],
+        "scan_ms": [round(t[1], 3), round(t[2], 3)],
+        "speedup": round((t[1] + t[2]) / (t[0] + t[3]), 3),
+        "lanes_differing": differ, "lanes": tab.n_lanes}), flush=True)
+
+
+def _profiled(label: str, fn) -> None:
+    """One profiled call of fn: wall, device kernel time, idle share
+    and the top kernels.  Device activity only, so each kernel's time
+    is counted once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    dev_s = sum(e.self_device_time_total for e in evs) / 1e6
+    print(f"{label}: profiled wall {wall:.4f} s, device kernel time "
+          f"{dev_s:.4f} s, idle share {1 - dev_s / wall:.4f}")
+    for e in evs[:12]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  {ms:10.2f} ms  x {e.count:4d}  {e.key[:100]}")
 
 
 def _ab(parent: str, reps: int) -> int:
@@ -130,6 +302,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--spp", type=int, default=1024)
     ap.add_argument("--ab", metavar="DIR")
+    ap.add_argument("--heads", action="store_true",
+                    help="run item 7 only")
     ap.add_argument("--ab-child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -150,6 +324,9 @@ def main() -> int:
         timeout=60).stdout.strip(), flush=True)
     if args.ab:
         return _ab(args.ab, args.reps)
+    if args.heads:
+        _heads(args.reps)
+        return 0
     dev = torch.device("cuda")
     spp, depth = args.spp, 50
     scene, cfg, _ = models.book1_random_spheres(
@@ -200,29 +377,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"prep {time.perf_counter() - t0:.4f} s", flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(label: str, fn) -> None:
-        """One profiled call of fn: wall, device kernel time, idle share
-        and the top kernels.  Device activity only, so each kernel's time
-        is counted once."""
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        evs.sort(key=lambda e: -e.self_device_time_total)
-        dev_s = sum(e.self_device_time_total for e in evs) / 1e6
-        print(f"{label}: profiled wall {wall:.4f} s, device kernel time "
-              f"{dev_s:.4f} s, idle share {1 - dev_s / wall:.4f}")
-        for e in evs[:12]:
-            ms = e.self_device_time_total / 1e3
-            print(f"  {ms:10.2f} ms  x {e.count:4d}  {e.key[:100]}")
-
-    profiled("flagship sorted loop", lambda: loop(True, iters0))
+    _profiled("flagship sorted loop", lambda: loop(True, iters0))
 
     s3, c3, _ = models.book3_cornell_box()
     s2, c2, _ = models.book2_cornell_box()
@@ -253,7 +408,7 @@ def main() -> int:
             print(f"{label} kernel rep {rep}: {wall:.4f} s "
                   f"{cw * ch * cspp / wall / 1e6:.2f} Mpaths/s", flush=True)
         end_to_end()  # warm: tables cached, swizzle index built
-        profiled(f"{label} end to end", end_to_end)
+        _profiled(f"{label} end to end", end_to_end)
 
     s9, c9, _ = models.get_scene("the_next_week")
     w9, h9, spp9 = c9.image_width, c9.image_height, c9.samples_per_pixel
@@ -278,7 +433,8 @@ def main() -> int:
                        width=w9, height=h9, spp=spp9, max_depth=c9.max_depth,
                        device=dev, stats=stats)
     print(f"the_next_week loop: {stats}", flush=True)
-    profiled("the_next_week render_image", main9)
+    _profiled("the_next_week render_image", main9)
+    _heads(args.reps)
     return 0
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``rustraytrace_tpu_torch``) on one
 NVIDIA GPU: builds the CUDA kernels from ``rustraytrace_tpu_torch/csrc``,
-holds each against its plain PyTorch version, and drives the port's three
-main paths on the card:
+holds each against its plain PyTorch version, and drives the port's main
+paths on the card:
 
 * the flagship (Book-1 random spheres, 1200x675, depth 50, 1024 spp in one
   pass) through ``render.render_pass`` on the sorted persist kernel K2;
@@ -12,6 +12,10 @@ main paths on the card:
   depth 4, motion, 400 boxes, two constant media, Perlin marble, the
   earthmap globe, a 1000-sphere cloud) through ``render.render_image`` on
   the image route: sorted K2 with per-tile launch bounds;
+* the Book-3 Cornell box again through ``render_pass_megakernel`` on the
+  monolithic megakernel K4 (``respawn=False``, the JAX default);
+* the final scene again through ``render_pass_wavefront`` with
+  ``per_bounce_segments=True`` on the per-bounce segment kernel K5;
 
 then the other routes, each also held bitwise against the plain twin at
 its full lane count.  Phases: 1 env, 2 build (registers of every kernel
@@ -20,7 +24,11 @@ invariance, 6 flagship, 7 Book-3 Cornell box on K3, 8 other K3 routes and
 the two-level cluster cull, 9 the final scene (one K2 launch vs the twin,
 sorted with tile bounds == unsorted == K3, the main path, a 104-spp pass
 of scene 9), every other Book-2 scene and ``sphere_field_10k`` at its own
-config, and a MIS scene with the Book-2 features.  The plain twins run at
+config, and a MIS scene with the Book-2 features; 10 K4 (the Book-3 path,
+== K3 bitwise at full configuration, == its twin, the Cornell smoke); 11
+K5 (the final-scene path, == the persist render bitwise, one launch vs the
+twin at full lanes, earth); 12 SAH quad clusters (1,024 quads, camera
+inside); 13 the MIS isotropic branch (the smoke scene).  The plain twins run at
 reduced spp on the card (the line of each comparison states its size).
 
     python3 chip_smoke.py
@@ -35,6 +43,7 @@ result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,10 +117,10 @@ def _path_ops(work, tables) -> float:
     """Operations of a path-tracer launch from its work counters
     (ops/megakernel.py WORK_NAMES: bounces, sphere rows tested, cluster
     boxes tested, box rows tested, media free flights, Perlin noise
-    evaluations, texel fetches) and its tables."""
-    (bounces, spheres, boxes, box_rows, media, noise,
-     texels) = (int(v) for v in work.tolist())
-    per_bounce = OPS["path_bounce"] + tables.n_quads * OPS["quad"]
+    evaluations, texel fetches, quad rows tested) and its tables."""
+    (bounces, spheres, boxes, box_rows, media, noise, texels,
+     quads) = (int(v) for v in work.tolist())
+    per_bounce = OPS["path_bounce"]
     if tables.mis:
         kinds = [int(k) for k in tables.ltab[:tables.n_lights, 0].tolist()]
         per_bounce += (OPS["mis_bounce"] - OPS["path_bounce"]
@@ -121,7 +130,7 @@ def _path_ops(work, tables) -> float:
     return (bounces * per_bounce + spheres * OPS["sphere"]
             + boxes * OPS["box"] + box_rows * OPS["box_row"]
             + media * OPS["medium"] + noise * OPS["noise"]
-            + texels * OPS["texel"])
+            + texels * OPS["texel"] + quads * OPS["quad"])
 
 
 def _work(work) -> dict:
@@ -172,22 +181,42 @@ def _field_scene(n: int, seed: int):
     return b.build()
 
 
+def _torch_scenes():
+    """The synthetic scenes the port's tests share (tests/torch_scenes.py
+    of this checkout), loaded by path: a package named ``tests`` elsewhere
+    on the path would shadow the directory."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_scenes.py")
+    spec = importlib.util.spec_from_file_location("torch_scenes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _registers(log: str) -> dict:
     """Kernel instance -> 'N regs, S B spill' from the ptxas -v build log.
     The path kernels' instances are named <integrator, features, count>:
-    ``path`` or ``mis``; ``book2`` for the motion, box, media and texture
-    code, ``base`` without it; ``count`` for the work-counting instances,
-    which no timed launch runs."""
+    ``path`` or ``mis`` (the segment kernel is ``path`` only); ``book2``
+    for the motion, box, media and texture code, ``base`` without it;
+    ``count`` for the work-counting instances, which no timed launch
+    runs."""
     out, name, spill = {}, None, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             base = next((k for k in ("persist_kernel", "respawn_kernel",
+                                     "mono_kernel", "segment_kernel",
                                      "sphere_hit_kernel") if k in mangled),
                         mangled)
-            flags = mangled.split("ILb", 1)[1][:9] if "ILb" in mangled else ""
-            if flags:  # "0ELb1ELb0": <MIS, BOOK2, COUNT>
-                mis, book2, count = (flags[k] == "1" for k in (0, 4, 8))
+            # template flags: "ILb0ELb1ELb0E" -> [False, True, False]
+            flags = [f == "1" for f in re.findall(r"Lb([01])E", mangled)]
+            if len(flags) == 2:  # segment_kernel<BOOK2, COUNT>
+                flags = [False] + flags
+            if len(flags) == 3:  # <MIS, BOOK2, COUNT>
+                mis, book2, count = flags
                 base += (f"<{'mis' if mis else 'path'}, "
                          f"{'book2' if book2 else 'base'}"
                          f"{', count' if count else ''}>")
@@ -464,7 +493,321 @@ def _phase9(dev) -> dict:
                 k2_bound=k2_bound, k2_by=k2_by, R9=R9, iters9=iters9,
                 k3f_ms=k3f_ms, k3f_bound=k3f_bound, k3f_by=k3f_by,
                 k2_work=_work(work9), k3f_work=_work(work3),
-                paths_per_s=w9 * h9 * spp9 / wall9)
+                paths_per_s=w9 * h9 * spp9 / wall9, scene=s9, cfg=c9,
+                cam=cam9, tables=tab9, accum=st9["accum"], plain4=plain9,
+                uniform2=uniform, k3_2=k3_final)
+
+
+def _phase10(dev, p7: dict) -> dict:
+    """K4, the monolithic megakernel: the Book-3 Cornell box through
+    ``render_pass_megakernel`` at its full configuration, bitwise equal to
+    phase 7's K3 render; K4 == K3 at full lanes x 4 spp; K4 == its twin at
+    2 spp; the Book-2 instance on the Cornell smoke at its own
+    configuration (K4 == K3 at 200 spp, == twin at 1 spp).  Returns the
+    numbers of the kernels line."""
+    import torch
+
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, megakernel as mk
+
+    s7, c7, cam7, tab = p7["scene"], p7["cfg"], p7["cam"], p7["tables"]
+    seed, off, R = c7.seed, p7["off"], tab.n_lanes
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = mk.render_pass_megakernel(
+        s7, cam7, seed, width=600, height=600, spp=100, max_depth=50,
+        mis=True, stratified=True, sqrt_spp=10, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    img = img.cpu().numpy()
+    eq_main = bool(np.array_equal(img, p7["accum"]))
+    ch, z = _agreement(img / 100.0, p7["plain4"] / 4.0)
+    print(f"[10 K4 book3_cornell_box] 600x600 100 spp (10x10 strata) depth "
+          f"50 MIS through render_pass_megakernel (respawn=False): "
+          f"{wall:.3f} s, {600 * 600 * 100 / wall:.6g} paths/s; kernel "
+          f"launch counts {counts}; image == phase 7's K3 render_image "
+          f"bitwise (required): {eq_main}; vs 4 spp plain: channel mean "
+          f"|diff| {ch:.4g}, 4x4 block max |z| {z:.3f} (need < 5)",
+          flush=True)
+    _check(counts["mono"] == 1 and sum(counts.values()) == 1,
+           "the Book-3 K4 path did not run one K4 launch alone")
+    _check(eq_main and z < 5.0, "K4's Book-3 image differs from K3's")
+
+    k4_4 = mk.mono_pass(tab, seed, off, 4, 50)
+    eq_k3 = bool(torch.equal(k4_4, p7["k3_sums"]))
+    k4_2 = mk.mono_pass(tab, seed, off, 2, 50)
+    p4_2, plain_ms = _cuda_ms_once(
+        lambda: mk.mono_pass_plain(tab, seed, off, 2, 50))
+    eq_tw = bool(torch.equal(k4_2, p4_2))
+    err = torch.abs(k4_2 - p4_2).max().item()
+    ms = _cuda_ms(lambda: mk.mono_pass(tab, seed, 0, 100, 50), 2)
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
+    mk.mono_pass(tab, seed, 0, 100, 50, work=work)
+    bound, by = _bound(_path_ops(work, tab), R * 3 * 4)
+    print(f"[10 K4 check] {R} lanes: K4 == K3 at 4 spp (samples {off}-"
+          f"{off + 3}) bitwise (required): {eq_k3}; K4 vs plain twin at 2 "
+          f"spp max |diff| {err:.3g}, bitwise equal (required): {eq_tw}; "
+          f"K4 {ms:.2f} ms at 100 spp (K3 {p7['k3_ms']:.2f} ms, ratio "
+          f"{ms / p7['k3_ms']:.3f}); plain twin {plain_ms:.1f} ms at 2 spp;"
+          f" work {_work(work)}, bound {bound:.3f} ms ({by})", flush=True)
+    _check(eq_k3 and eq_tw, "K4 differs from K3 or from its plain twin")
+
+    sS, cS, _ = models.book2_cornell_smoke()
+    wS, hS, sppS, dS = (cS.image_width, cS.image_height,
+                        cS.samples_per_pixel, cS.max_depth)
+    tabS = mk.prepare_megakernel_cached(
+        sS, derive_camera(cS, device=dev), width=wS, height=hS,
+        tile_rows=mk.respawn_tile_rows(sS), device=dev)
+    k4S, k4S_ms = _cuda_ms_once(lambda: mk.mono_pass(tabS, cS.seed, 0,
+                                                     sppS, dS))
+    k3S, k3S_ms = _cuda_ms_once(lambda: mk.respawn_pass(tabS, cS.seed, 0,
+                                                        sppS, dS))
+    eqS = bool(torch.equal(k4S, k3S))
+    k1 = mk.mono_pass(tabS, cS.seed, 0, 1, dS)
+    p1 = mk.mono_pass_plain(tabS, cS.seed, 0, 1, dS)
+    eqS1, errS = bool(torch.equal(k1, p1)), torch.abs(k1 - p1).max().item()
+    print(f"[10 K4 book2_cornell_smoke] {wS}x{hS} {sppS} spp depth {dS} "
+          f"(Book-2 instance, {tabS.n_lanes} lanes): K4 {k4S_ms:.2f} ms, "
+          f"K3 {k3S_ms:.2f} ms (ratio {k4S_ms / k3S_ms:.3f}); K4 == K3 "
+          f"bitwise (required): {eqS}; 1 spp K4 vs plain twin max |diff| "
+          f"{errS:.3g}, bitwise equal (required): {eqS1}", flush=True)
+    _check(eqS and eqS1, "K4 differs on the Cornell smoke")
+    return dict(launches=counts["mono"], err=max(err, errS), ms=ms,
+                plain_ms=plain_ms, bound=bound, by=by, work=_work(work),
+                R=R, smoke_ms=k4S_ms, smoke_k3_ms=k3S_ms,
+                paths_per_s=600 * 600 * 100 / wall)
+
+
+def _phase11(dev, r9: dict) -> dict:
+    """K5, the per-bounce segment kernel: the final scene through
+    ``render_pass_wavefront(per_bounce_segments=True)`` at its full
+    configuration, bitwise equal to phase 9's persist-loop render; one K5
+    launch at the main path's lanes vs the twin; segmented == unsorted K2
+    == K3 at 2 spp; earth at its own configuration, == its image-route
+    pass.  Returns the numbers of the kernels line."""
+    import torch
+
+    from rustraytrace_tpu_torch import models, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    s9, c9, cam9, tab = r9["scene"], r9["cfg"], r9["cam"], r9["tables"]
+    w9, h9, spp9, d9, seed = (c9.image_width, c9.image_height,
+                              c9.samples_per_pixel, c9.max_depth, c9.seed)
+    stats: dict = {}
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = wf.render_pass_wavefront(
+        s9, cam9, seed, width=w9, height=h9, spp=spp9, max_depth=d9,
+        per_bounce_segments=True, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    img = img.cpu().numpy()
+    eq_main = bool(np.array_equal(img, r9["accum"]))
+    ch, z = _agreement(img / spp9, r9["plain4"] / 4.0)
+    print(f"[11 K5 the_next_week] {w9}x{h9} {spp9} spp depth {d9} through "
+          f"render_pass_wavefront(per_bounce_segments=True): {wall:.3f} s, "
+          f"{w9 * h9 * spp9 / wall:.6g} paths/s, {stats['launches']} "
+          f"segments ({1e3 * wall / stats['launches']:.3f} ms each); kernel "
+          f"launch counts {counts}; image == phase 9's persist render "
+          f"bitwise (required): {eq_main}; vs 4 spp plain: channel mean "
+          f"|diff| {ch:.4g}, 4x4 block max |z| {z:.3f} (need < 5)",
+          flush=True)
+    _check(counts["segment"] == stats["launches"] > 0
+           and sum(counts.values()) == counts["segment"],
+           "the final scene's segment path did not run K5 alone")
+    _check(eq_main and z < 5.0, "the segmented final scene is off")
+
+    R = tab.n_lanes
+    slot = torch.arange(R, dtype=torch.int64, device=dev)
+    sample = torch.zeros(R, dtype=torch.int64, device=dev)
+    v = wf.spawn_lanes(tab, slot, sample, wf.seed_key(seed))
+    zero = torch.zeros(R, device=dev)
+    st0 = torch.stack([v.get(k, zero) for k in wf._SEG_NAMES])
+    s32 = sample.to(torch.int32)
+    st_k, st_p = st0.clone(), st0.clone()
+    wf.segment_step(st_k, s32, tab, seed, max_depth=d9)
+    _, plain_ms = _cuda_ms_once(
+        lambda: wf.segment_step_plain(st_p, s32, tab, seed, max_depth=d9))
+    eq1 = bool(torch.equal(st_k, st_p))
+    err = torch.abs(st_k - st_p).max().item()
+    ms = _cuda_ms(lambda: wf.segment_step(st0.clone(), s32, tab, seed,
+                                          max_depth=d9), 10)
+    copy_ms = _cuda_ms(lambda: st0.clone(), 10)
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
+    wf.segment_step(st0.clone(), s32, tab, seed, max_depth=d9, work=work)
+    # the 15-row state read and written once, the sample index read once
+    bound, by = _bound(_path_ops(work, tab), R * (2 * wf.N_SEG + 1) * 4)
+    seg2 = wf._wavefront_pass_segments(tab, seed, 0, spp=2, max_depth=d9)
+    eq2 = bool(torch.equal(seg2, r9["uniform2"])
+               and torch.equal(seg2, r9["k3_2"]))
+    print(f"[11 K5 check] one launch at {R} lanes (first bounce of sample "
+          f"0): kernel vs plain max |diff| {err:.3g}, bitwise equal "
+          f"(required): {eq1}; kernel {ms - copy_ms:.4f} ms (with the "
+          f"state copy {ms:.4f} ms), plain {plain_ms:.1f} ms; work "
+          f"{_work(work)}, bound {bound:.4f} ms ({by}); 2 spp segmented == "
+          f"unsorted K2 == K3 bitwise (required): {eq2}", flush=True)
+    _check(eq1 and eq2, "K5 differs from its twin or from K2 / K3")
+
+    sE, cE, _ = models.book2_earth()
+    wE, hE, sppE, dE = (cE.image_width, cE.image_height,
+                        cE.samples_per_pixel, cE.max_depth)
+    camE = derive_camera(cE, device=dev)
+    statsE: dict = {}
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segE = wf.render_pass_wavefront(
+        sE, camE, cE.seed, width=wE, height=hE, spp=sppE, max_depth=dE,
+        per_bounce_segments=True, device=dev, stats=statsE)
+    torch.cuda.synchronize()
+    wallE = time.perf_counter() - t0
+    countsE = _cuda.launch_counts()
+    t0 = time.perf_counter()
+    perE = render.render_pass(sE, camE, cE.seed, width=wE, height=hE,
+                              spp=sppE, max_depth=dE, device=dev)
+    torch.cuda.synchronize()
+    wallP = time.perf_counter() - t0
+    eqE = bool(torch.equal(segE, perE))
+    print(f"[11 K5 book2_earth] {wE}x{hE} {sppE} spp depth {dE}: segmented "
+          f"{wallE:.3f} s ({statsE['launches']} segments, launch counts "
+          f"{countsE}), image-route persist pass {wallP:.3f} s; bitwise "
+          f"equal (required): {eqE}", flush=True)
+    _check(countsE["segment"] == statsE["launches"] > 0 and eqE,
+           "the segmented earth differs or did not run K5")
+    return dict(launches=counts["segment"], err=err, ms=ms - copy_ms,
+                plain_ms=plain_ms, bound=bound, by=by, work=_work(work),
+                R=R, wall=wall, segments=stats["launches"], earth_s=wallE,
+                earth_persist_s=wallP, paths_per_s=w9 * h9 * spp9 / wall)
+
+
+def _phase12(dev) -> dict:
+    """SAH quad clusters: 1,024 random quads with the camera inside the
+    field (400x400, 64 spp, depth 8) through ``render.render_pass``; K3
+    == the pass, the cull == the linear scan of every quad row, and K3 and
+    a K2 launch == the plain twin."""
+    import dataclasses
+
+    import torch
+
+    from rustraytrace_tpu_torch import RenderConfig, SceneBuilder, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+    ts = _torch_scenes()
+    scene = ts.quad_field(SceneBuilder, 1024)
+    cfg = RenderConfig(image_width=400, samples_per_pixel=64, max_depth=8,
+                       **ts.FIELD_INSIDE_CFG)
+    cam = derive_camera(cfg, device=dev)
+    stats: dict = {}
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = render.render_pass(scene, cam, cfg.seed, width=400, height=400,
+                             spp=64, max_depth=8, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    tab = mk.prepare_megakernel_cached(
+        scene, cam, width=400, height=400,
+        tile_rows=mk.respawn_tile_rows(scene), device=dev)
+    _check(tab.n_qclusters > 1, "the quad field has no quad clusters")
+    k3, k3_ms = _cuda_ms_once(lambda: mk.respawn_pass(tab, cfg.seed, 0, 64,
+                                                      8))
+    idx = mk.unswizzle_index_on(400, 400, dev)
+    eq_pass = bool(torch.equal(k3[idx].reshape(400, 400, 3), acc))
+    lin = dataclasses.replace(tab, n_qclusters=0)
+    kl, lin_ms = _cuda_ms_once(lambda: mk.respawn_pass(lin, cfg.seed, 0, 64,
+                                                       8))
+    differ = int((k3 != kl).any(dim=1).sum())
+    k1 = mk.respawn_pass(tab, cfg.seed, 0, 1, 8)
+    p1, p_ms = _cuda_ms_once(lambda: mk.respawn_pass_plain(tab, cfg.seed, 0,
+                                                           1, 8))
+    eq_tw = bool(torch.equal(k1, p1))
+    R = tab.n_lanes
+    st_k = torch.zeros((wf.N_STATE, R), device=dev)
+    st_p = st_k.clone()
+    sl = torch.arange(R, dtype=torch.int32, device=dev)
+    kw = dict(persist_iters=8, spp=64, max_depth=8)
+    wf.persist_step(st_k, sl, tab, cfg.seed, **kw)
+    wf.persist_step_plain(st_p, sl, tab, cfg.seed, **kw)
+    eq_k2 = bool(torch.equal(st_k, st_p))
+    print(f"[12 quad clusters] 1024 quads in {tab.n_qclusters} clusters, "
+          f"camera inside, 400x400 64 spp depth 8 through render_pass: "
+          f"{wall:.3f} s, {400 * 400 * 64 / wall:.6g} paths/s, "
+          f"{stats['launches']} launches, kernel launch counts {counts}; "
+          f"K3 {k3_ms:.2f} ms with the cull, {lin_ms:.2f} ms scanning every "
+          f"quad row (x{lin_ms / k3_ms:.2f}); lanes where the cull and the "
+          f"scan differ: {differ} of {R} (need < 0.01%); K3 == the pass "
+          f"bitwise (required): {eq_pass}; 1 spp K3 and one 8-iteration "
+          f"K2 launch == plain twin bitwise (required): {eq_tw} / {eq_k2} "
+          f"(plain K3 {p_ms:.0f} ms)", flush=True)
+    _check(counts["persist"] == stats["launches"] > 0,
+           "the quad field's pass did not run the persist kernel")
+    _check(eq_pass and eq_tw and eq_k2 and differ < 1e-4 * R,
+           "the quad-cluster kernels differ")
+    return dict(err=max(torch.abs(k1 - p1).max().item(),
+                        torch.abs(st_k - st_p).max().item()),
+                k3_ms=k3_ms, lin_ms=lin_ms)
+
+
+def _phase13(dev) -> float:
+    """The MIS estimator's isotropic branch: the JAX package's smoke scene
+    (black smoke) at 400x400, 64 spp, depth 12 through
+    ``render.render_pass`` (K3), held against a 4 spp plain render within
+    5 standard errors; K3 and K4 == the twin, bitwise, with black and
+    with white smoke."""
+    import torch
+
+    from rustraytrace_tpu_torch import RenderConfig, SceneBuilder, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, megakernel as mk
+    ts = _torch_scenes()
+    cfg = RenderConfig(image_width=400, samples_per_pixel=64, max_depth=12,
+                       **ts.SMOKE_CFG)
+    cam = derive_camera(cfg, device=dev)
+    errs = []
+    for smoke in ((0.0, 0.0, 0.0), (0.73, 0.73, 0.73)):
+        scene = ts.smoke_mis_scene(SceneBuilder, smoke)
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = render.render_pass(scene, cam, cfg.seed, width=400, height=400,
+                                 spp=64, max_depth=12, integrator="mis",
+                                 device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        plain = render.render_pass(
+            scene, cam, cfg.seed, width=400, height=400, spp=4,
+            max_depth=12, integrator="mis", backend="plain", device=dev)
+        ch, z = _agreement(acc.cpu().numpy() / 64.0,
+                           plain.cpu().numpy() / 4.0)
+        tab = mk.prepare_megakernel_cached(
+            scene, cam, width=400, height=400,
+            tile_rows=mk.respawn_tile_rows(scene), mis=True,
+            stratified=False, sqrt_spp=0, device=dev)
+        k3 = mk.respawn_pass(tab, cfg.seed, 0, 2, 12)
+        k4 = mk.mono_pass(tab, cfg.seed, 0, 2, 12)
+        p = mk.respawn_pass_plain(tab, cfg.seed, 0, 2, 12)
+        eq = bool(torch.equal(k3, p) and torch.equal(k4, p))
+        print(f"[13 smoke MIS, smoke albedo {smoke[0]}] 400x400 64 spp depth"
+              f" 12 through render_pass: {wall:.3f} s, launch counts "
+              f"{counts}; vs 4 spp plain: channel mean |diff| {ch:.4g}, 4x4"
+              f" block max |z| {z:.3f} (need < 5); 2 spp K3 and K4 == plain"
+              f" twin bitwise (required): {eq} (max |diff| "
+              f"{torch.abs(k3 - p).max().item():.3g})", flush=True)
+        _check(counts["megakernel"] == 1 and z < 5.0 and eq,
+               "the smoke MIS scene is off")
+        errs.append(max(torch.abs(k3 - p).max().item(),
+                        torch.abs(k4 - p).max().item()))
+    return max(errs)
 
 
 def main() -> int:
@@ -810,9 +1153,17 @@ def main() -> int:
     _check(eqS, "K3 and its plain twin differ under the two-level cull")
 
     r9 = _phase9(dev)
+    p7 = dict(scene=s7, cfg=c7, cam=cam7, tables=tab100, off=off7,
+              accum=st7["accum"], plain4=plain4, k3_sums=k3_sums,
+              k3_ms=k3_ms)
+    r10 = _phase10(dev, p7)
+    r11 = _phase11(dev, r9)
+    r12 = _phase12(dev)
+    err13 = _phase13(dev)
 
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
-               "flagship_4k": err4k, "field_1500": errS}
+               "flagship_4k": err4k, "field_1500": errS,
+               "quad_field_1024": r12["err"], "smoke_mis": err13}
     kernels = [dict(name="persist", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/persist.cu",
                     replaces="rustraytrace_tpu/ops/pallas_wavefront.py:382",
@@ -851,7 +1202,39 @@ def main() -> int:
                     final_scene_bound_by=r9["k3f_by"],
                     final_scene_work=r9["k3f_work"],
                     final_scene_shape=f"{r9['R9']} lanes x 2 spp, "
-                                      "the_next_week")]
+                                      "the_next_week",
+                    quad_field_ms=r12["k3_ms"],
+                    quad_field_linear_scan_ms=r12["lin_ms"]),
+               dict(name="mono", route="cuda",
+                    source="rustraytrace_tpu_torch/csrc/mono.cu",
+                    replaces="rustraytrace_tpu/ops/pallas_megakernel.py:2087",
+                    launches=r10["launches"],
+                    launches_by_path={"book3_cornell_box (K4)":
+                                      r10["launches"]},
+                    max_abs_err=max(r10["err"], err13),
+                    ms=r10["ms"], plain_ms=r10["plain_ms"],
+                    bound_ms=r10["bound"], bound_by=r10["by"],
+                    library_ms=None, work=r10["work"],
+                    ms_shape=f"{r10['R']} lanes x 100 spp, "
+                             "book3_cornell_box",
+                    plain_ms_shape=f"{r10['R']} lanes x 2 spp, "
+                                   "book3_cornell_box",
+                    k3_ms_same_shape=k3_ms,
+                    smoke_ms=r10["smoke_ms"],
+                    smoke_k3_ms=r10["smoke_k3_ms"]),
+               dict(name="segment", route="cuda",
+                    source="rustraytrace_tpu_torch/csrc/segment.cu",
+                    replaces="rustraytrace_tpu/ops/pallas_wavefront.py:291",
+                    launches=r11["launches"],
+                    launches_by_path={"the_next_week (K5)":
+                                      r11["launches"]},
+                    max_abs_err=r11["err"], ms=r11["ms"],
+                    plain_ms=r11["plain_ms"], bound_ms=r11["bound"],
+                    bound_by=r11["by"], library_ms=None, work=r11["work"],
+                    ms_shape=f"{r11['R']} lanes, one bounce, the_next_week",
+                    plain_ms_shape=f"{r11['R']} lanes, one bounce, "
+                                   "the_next_week",
+                    path_seconds=r11["wall"], segments=r11["segments"])]
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
           f"started", flush=True)
     print(json.dumps({"off_path_kernels": [k1_entry]}))

@@ -1,9 +1,11 @@
 // The path tracer's device side, shared by the persist kernel (K2,
-// persist.cu) and the respawn megakernel (K3, megakernel.cu): closest hit
-// over spheres (SAH cluster cull), then boxes (box-cluster cull), then
-// quads, then constant media; one bounce of the path or the NEE/MIS
-// estimator; the camera spawn; and the per-lane step {bank a finished path,
-// respawn the next camera ray, one bounce}.
+// persist.cu), the respawn megakernel (K3, megakernel.cu), the monolithic
+// megakernel (K4, mono.cu) and the per-bounce segment kernel (K5,
+// segment.cu): closest hit over spheres (SAH cluster cull), then boxes
+// (box-cluster cull), then quads (SAH quad-cluster cull from 32 quads),
+// then constant media; one bounce of the path or the NEE/MIS estimator;
+// the camera spawn; and the per-lane step {bank a finished path, respawn
+// the next camera ray, one bounce}.
 //
 // Counterparts: intersect / bounce_body / spawn_rays / pbody of _make_kernel,
 // rustraytrace_tpu/ops/pallas_megakernel.py:714-1991.  Plain twin:
@@ -22,7 +24,7 @@
 //
 // Random numbers are Philox keyed by (slot, absolute sample index, bounce,
 // stream): a lane's path does not depend on the launch, the sorted position
-// or the kernel (K2 or K3) that runs it.
+// or the kernel (K2, K3, K4 or K5) that runs it.
 #pragma once
 
 #include "rtt_common.cuh"
@@ -69,8 +71,11 @@ struct Params {
   int n_sclusters;
   int n_ssc_static;  // leading super-clusters of static spheres (split)
   int unroll;
-  const float* qtab;  // [Q, 32] quad frames + materials
-  int n_quads;
+  // [Q + QC, 32] quad frames + materials; with n_qclusters > 1 the rows
+  // are in quad-cluster order and QC metadata rows [lo3, hi3, start, end]
+  // follow the Q quad rows
+  const float* qtab;
+  int n_quads, n_qclusters;
   const float* ltab;  // [L, 24] NEE light table
   int n_lights;
   const float* btab;  // [NB, 8] box lo3, hi3 in box-cluster order
@@ -91,10 +96,12 @@ struct Params {
   int moving, has_checker, has_noise, has_image;
   uint32_t k0, k1;
   int sample_offset;
-  // [7] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
+  // [8] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
   // instances only; null otherwise
   unsigned long long* work;
 };
+
+constexpr int N_WORK = 8;
 
 // Per-thread work counts, added to Params::work once at the end.  The
 // kernels are instantiated with COUNT = false for every timed launch, where
@@ -102,7 +109,7 @@ struct Params {
 // where a caller passes Params::work.
 template <bool COUNT>
 struct Work {
-  uint32_t n[7] = {0, 0, 0, 0, 0, 0, 0};
+  uint32_t n[N_WORK] = {0, 0, 0, 0, 0, 0, 0, 0};
   __device__ __forceinline__ void add(int k, int v) {
     if constexpr (COUNT) n[k] += (uint32_t)v;
   }
@@ -113,10 +120,11 @@ struct Work {
   __device__ __forceinline__ void medium() { add(4, 1); }
   __device__ __forceinline__ void noise() { add(5, 1); }
   __device__ __forceinline__ void texel() { add(6, 1); }
+  __device__ __forceinline__ void quad_rows(int v) { add(7, v); }
   __device__ __forceinline__ void flush(const Params& P) const {
     if constexpr (COUNT) {
 #pragma unroll
-      for (int k = 0; k < 7; ++k)
+      for (int k = 0; k < N_WORK; ++k)
         atomicAdd(P.work + k, (unsigned long long)n[k]);
     }
   }
@@ -214,6 +222,24 @@ __device__ __forceinline__ void scan_boxes(const Params& P, int lo, int hi,
   }
 }
 
+// quad rows [lo, hi) of the quad table, strict "<" in table order
+template <class WorkT>
+__device__ __forceinline__ void scan_quads(const Params& P, int lo, int hi,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float* bt, int* bi, WorkT& W) {
+  W.quad_rows(hi - lo);
+  for (int q = lo; q < hi; ++q) {
+    bool ok;
+    const float tq = quad_hit(P.qtab + q * Q_COLS, ox, oy, oz, dx, dy, dz,
+                              &ok);
+    if (ok && tq < *bt) {
+      *bt = tq;
+      *bi = q;
+    }
+  }
+}
+
 struct Hit {
   float t;  // best t, or BIG on a miss
   int si;   // sphere winner row, or -1
@@ -226,7 +252,9 @@ struct Hit {
 
 // Closest hit: spheres first (a per-thread cull over the two-level SAH
 // cluster hierarchy, the box test of pallas_megakernel.py:797), then the
-// boxes (the same cull over box clusters), then every quad, each with a
+// boxes (the same cull over box clusters), then the quads (every row, or
+// with two or more quad clusters the same cull over their metadata rows,
+// pallas_megakernel.py:1063-1098), each with a
 // strict "<" in table order, so an earlier class wins a tie; then the
 // constant media in table order, each free flight clipped by the running
 // closest hit (pallas_megakernel.py:1100-1199).  The cull is not exactly a
@@ -246,7 +274,7 @@ __device__ inline Hit intersect(const Params& P, float tm, float ox,
   const bool split =
       moving && P.n_ssc_static > 0 && P.n_ssc_static < P.n_sclusters;
   float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
-  if (P.n_clusters > 0 || (BOOK2 && P.n_boxes > 0)) {
+  if (P.n_clusters > 0 || (BOOK2 && P.n_boxes > 0) || P.n_qclusters > 1) {
     ivx = safe_inv(dx);
     ivy = safe_inv(dy);
     ivz = safe_inv(dz);
@@ -300,14 +328,16 @@ __device__ inline Hit intersect(const Params& P, float tm, float ox,
     }
   }
   int qi = -1;
-  for (int q = 0; q < P.n_quads; ++q) {
-    bool ok;
-    const float tq = quad_hit(P.qtab + q * Q_COLS, ox, oy, oz, dx, dy, dz,
-                              &ok);
-    if (ok && tq < bt) {
-      bt = tq;
-      qi = q;
+  if (P.n_qclusters > 1) {
+    for (int c = 0; c < P.n_qclusters; ++c) {
+      W.box();
+      const float* m = P.qtab + (P.n_quads + c) * Q_COLS;
+      if (!box_hit(m, ox, oy, oz, ivx, ivy, ivz, bt)) continue;
+      scan_quads(P, (int)m[6], (int)m[7], ox, oy, oz, dx, dy, dz, &bt, &qi,
+                 W);
     }
+  } else {
+    scan_quads(P, 0, P.n_quads, ox, oy, oz, dx, dy, dz, &bt, &qi, W);
   }
   int mi = -1;
   if constexpr (BOOK2) {
@@ -500,8 +530,9 @@ __device__ __forceinline__ void image_texel(const Params& P, float img,
 
 // One bounce of a live lane (bounce_body, pallas_megakernel.py:1202-1771):
 // the path integrator, or with MIS the book-3 NEE/MIS estimator
-// (the_rest_of_your_life/camera.rs:184-254) without the isotropic branch,
-// which comes with media.  `s` and `sample` key the draws.
+// (the_rest_of_your_life/camera.rs:184-254), whose isotropic lanes (a
+// medium's scatter or an Isotropic material) sample the uniform sphere.
+// `s` and `sample` key the draws.
 template <bool MIS, bool BOOK2, class WorkT>
 __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
                        WorkT& W) {
@@ -744,9 +775,9 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
 
   const bool is_met = kind == 1.0f;
   const bool is_die = kind == 2.0f;
+  const bool is_iso = kind == 4.0f;
   float ndx, ndy, ndz;
   if constexpr (!MIS) {
-    const bool is_iso = kind == 4.0f;
     ndx = is_met ? mx : (is_die ? ex : (is_iso ? rvx : lx));
     ndy = is_met ? my : (is_die ? ey : (is_iso ? rvy : ly));
     ndz = is_met ? mz : (is_die ? ez : (is_iso ? rvz : lz));
@@ -801,13 +832,18 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
     float bux, buy, buz, bvx, bvy, bvz;
     onb(nx, ny, nz, &bux, &buy, &buz, &bvx, &bvy, &bvz);
     const float phi2 = TWO_PI * u5;
+    const float cph = cosf(phi2), sph = sinf(phi2);
     const float sq6 = sqrtf(u6);
-    const float clx = cosf(phi2) * sq6;
-    const float cly = sinf(phi2) * sq6;
+    const float clx = cph * sq6;
+    const float cly = sph * sq6;
     const float clz = sqrtf(fmaxf(1.0f - u6, 0.0f));
-    const float mdx = clx * bux + cly * bvx + clz * nx;
-    const float mdy = clx * buy + cly * bvy + clz * ny;
-    const float mdz = clx * buz + cly * bvz + clz * nz;
+    // isotropic lanes: the uniform sphere from the same u5, u6
+    // (material.rs:177-190, pdf.rs:19-29; pallas_megakernel.py:1618-1627)
+    const float z_i = u6 * 2.0f - 1.0f;
+    const float r_i = sqrtf(fmaxf(1.0f - z_i * z_i, 0.0f));
+    const float mdx = is_iso ? cph * r_i : clx * bux + cly * bvx + clz * nx;
+    const float mdy = is_iso ? sph * r_i : clx * buy + cly * bvy + clz * ny;
+    const float mdz = is_iso ? z_i : clx * buz + cly * bvz + clz * nz;
 
     // the picked light's sampled direction (HittableList::random,
     // hittable_list.rs:71-75): light l is picked when u9 * n >= l
@@ -856,7 +892,11 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
     const float g2 = fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, 1e-30f);
     const float ginv = 1.0f / sqrtf(g2);
     const float cos_th = (nx * gdx + ny * gdy + nz * gdz) * ginv;
-    const float cpdf = fmaxf(cos_th, 0.0f) * INV_PI;  // pdf.rs:41-49
+    // cosine pdf (pdf.rs:41-49); an isotropic lane's mixture and
+    // scattering pdf are both the uniform sphere's 1/4pi
+    // (material.rs:187-189; pallas_megakernel.py:1678-1681)
+    const float cpdf =
+        is_iso ? 0.25f * INV_PI : fmaxf(cos_th, 0.0f) * INV_PI;
 
     // mixture's light pdf: the mean over lights (hittable_list.rs:60-69)
     float lp = 0.0f;

@@ -45,14 +45,15 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 
 class PathParams(ctypes.Structure):
     """Mirror of ``rtt::Params`` (csrc/path.cuh): the tables and uniforms
-    that the persist kernel and the respawn megakernel read."""
+    that the path kernels (persist, megakernel, mono, segment) read."""
 
     _fields_ = [
         ("geom", _P), ("gvel", _P), ("tab", _P), ("n_rows", _I),
         ("clb", _P), ("cls", _P), ("n_clusters", _I),
         ("sclb", _P), ("scls", _P), ("n_sclusters", _I),
         ("n_ssc_static", _I), ("unroll", _I),
-        ("qtab", _P), ("n_quads", _I), ("ltab", _P), ("n_lights", _I),
+        ("qtab", _P), ("n_quads", _I), ("n_qclusters", _I),
+        ("ltab", _P), ("n_lights", _I),
         ("btab", _P), ("batt", _P), ("bclb", _P), ("bcls", _P),
         ("n_boxes", _I), ("n_bclusters", _I), ("b_unroll", _I),
         ("mtab", _P), ("n_media", _I), ("perm", _P), ("randvec", _P),
@@ -82,11 +83,27 @@ KERNELS = {
                       (_P, _P, _I, _P, _I, _I, _I, _P, _I, _P)),
     # out, R, &PathParams, mis, book2, stream
     "megakernel": Kernel("rtt_respawn_pass", (_P, _I, _P, _I, _I, _P)),
+    # out, R, &PathParams, mis, book2, stream
+    "mono": Kernel("rtt_mono_pass", (_P, _I, _P, _I, _I, _P)),
+    # state, sample, R, &PathParams, book2, stream
+    "segment": Kernel("rtt_segment_step", (_P, _P, _I, _P, _I, _P)),
 }
 
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
+
+
+def device(dev) -> torch.device:
+    """``dev`` as a torch device: CUDA (raises without a card) or CPU.
+    Nothing moves to the CPU on its own."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"device type {dev.type!r}")
+    return dev
 
 
 def _nvcc() -> str:

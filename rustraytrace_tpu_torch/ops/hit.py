@@ -67,8 +67,11 @@ def pack_quad_table(scene: Scene) -> torch.Tensor:
     n = torch.linalg.cross(u, v)
     nn = torch.clamp(torch.sum(n * n, dim=-1, keepdim=True), min=1e-30)
     w = n / nn
-    normal = torch.where(mask[:, None], n / torch.sqrt(nn),
-                         torch.zeros_like(n))
+    # sqrt in float64, rounded once to float32: the correctly rounded f32
+    # square root on every device (the CPU build's float32 sqrt is not
+    # for every input, and the JAX package's table has the correct one)
+    norm = torch.sqrt(nn.to(torch.float64)).to(torch.float32)
+    normal = torch.where(mask[:, None], n / norm, torch.zeros_like(n))
     dp = torch.sum(normal * q, dim=-1)
     mat = scene.quad_mat.long()
     mtex = scene.mat_tex.long()[mat]

@@ -1,16 +1,17 @@
-"""The path tracer's tables and the respawn megakernel K3 (counterpart:
+"""The path tracer's tables and the megakernels K3 and K4 (counterpart:
 ``rustraytrace_tpu/ops/pallas_megakernel.py``: the host functions, and
-``render_pass_megakernel`` with ``respawn=True``).
+``render_pass_megakernel`` with ``respawn=True`` and ``False``).
 
-Host half: ``prepare_megakernel`` builds what the persist kernel
-(``csrc/persist.cu``), the respawn megakernel (``csrc/megakernel.cu``) and
-their plain twins read: the sphere table in SAH cluster order (static and
-moving spheres clustered apart when a moving scene has a static majority),
+Host half: ``prepare_megakernel`` builds what the path kernels (persist
+K2, the megakernels K3 and K4, the segment kernel K5) and their plain
+twins read: the sphere table in SAH cluster order (static and moving
+spheres clustered apart when a moving scene has a static majority),
 cluster ranges padded to the sphere-loop unroll with unhittable
 ``r2 = -BIG`` sentinel rows, the cluster and super-cluster AABBs, the
-SAH-clustered box table and its winner attributes, the quad table, the
-constant-media table, the Perlin lattice, the image texels, the NEE light
-table and the camera uniforms.  Row order and values are the JAX
+SAH-clustered box table and its winner attributes, the quad table
+(SAH-clustered from QUAD_CLUSTER_MIN quads), the constant-media table, the
+Perlin lattice, the image texels, the NEE light table and the camera
+uniforms.  Row order and values are the JAX
 package's, so the tables are bit-equal to ``prepare_megakernel(...,
 segment=True)`` there.  What is not carried over are the layouts that exist
 for Mosaic: the column-major SMEM geometry table and the 128-lane attribute
@@ -20,10 +21,14 @@ velocities) and row-major attribute tables; the Perlin lattice stays
 image table is flat texels ``[sum h*w, 3]`` with an int32 ``(base, w, h)``
 row per image instead of (8, 128)-tiled RGBA blocks.
 
-Device half: ``respawn_pass`` launches K3, one launch per render pass, in
-which every lane walks its ``spp`` samples back to back; CPU tensors run
-its plain twin ``respawn_pass_plain``.  ``render_pass_megakernel`` prepares
-the tables, runs one pass and unswizzles the sums to pixels.
+Device half: ``respawn_pass`` launches K3 (``csrc/megakernel.cu``), one
+launch per render pass, in which every lane walks its ``spp`` samples back
+to back, respawning on its own; ``mono_pass`` launches K4
+(``csrc/mono.cu``), in which every lane runs its samples one after another
+and a warp meets at each sample boundary.  CPU tensors run their plain
+twins ``respawn_pass_plain`` and ``mono_pass_plain``.
+``render_pass_megakernel`` prepares the tables, runs one pass (K4 unless
+``respawn``) and unswizzles the sums to pixels.
 """
 
 from __future__ import annotations
@@ -35,9 +40,9 @@ import numpy as np
 import torch
 
 from ..config import BG_SKY, CameraParams
-from ..scene import ISOTROPIC, TEX_IMAGE, TEX_NOISE, Scene
+from ..scene import TEX_IMAGE, TEX_NOISE, Scene
 from . import _cuda
-from .hit import Q_COLS, pack_quad_table
+from .hit import Q_COLS, Q_QX, Q_UX, Q_VX, pack_quad_table
 from .rng import seed_key
 
 _BIG = 1.0e30
@@ -56,7 +61,7 @@ BOX_MAX_LEAF = 32
 
 # work counters of the kernels' COUNT instances (path_params ``work``)
 WORK_NAMES = ("bounces", "sphere_rows", "cluster_boxes", "box_rows",
-              "media_tests", "noise_evals", "texel_fetches")
+              "media_tests", "noise_evals", "texel_fetches", "quad_rows")
 
 # joined sphere+material table columns (pallas_megakernel.py:83-94)
 J_CX, J_CY, J_CZ, J_R2 = 0, 1, 2, 3
@@ -89,8 +94,10 @@ L_CX, L_CY, L_CZ = 18, 19, 20
 L_RAD = 21
 L_COLS = 24
 
-# at this many quads the JAX package SAH-clusters the quad table
+# at this many quads the quad table is SAH-clustered, at most
+# QUAD_MAX_LEAF quads a cluster (pallas_megakernel.py:200-206)
 QUAD_CLUSTER_MIN = 32
+QUAD_MAX_LEAF = 32
 
 # box slab table columns (pallas_megakernel.py:270-272) and the box winner
 # attributes, row-major (the JAX batab rows 0-5 and 12-16)
@@ -122,49 +129,28 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def megakernel_eligible(scene: Scene, integrator: str = "path") -> bool:
     """True when the ported kernels cover the scene: spheres (moving or
-    not), fewer than QUAD_CLUSTER_MIN quads, boxes, constant media, solid,
-    checker, Perlin-marble and image albedos, sky or flat background, the
-    path integrator or (with ``mis_lights_ok``) the NEE/MIS one.  What is
-    not ported raises ``NotImplementedError`` naming it: SAH-clustered
-    quads (>= QUAD_CLUSTER_MIN), the MIS estimator's isotropic branch
-    (media or isotropic materials under 'mis'), and image-textured media,
-    which the JAX package renders only on its XLA path."""
+    not), quads (SAH-clustered from QUAD_CLUSTER_MIN), boxes, constant
+    media, solid, checker, Perlin-marble and image albedos, sky or flat
+    background, the path integrator or (with ``mis_lights_ok``) the NEE/MIS
+    one, isotropic media and materials included.  Image-textured media,
+    which the JAX package renders only on its XLA path, raise
+    ``NotImplementedError``."""
     if integrator not in ("path", "mis"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    n_quads = int(_np(scene.quad_mask).sum()) if "quads" in scene.features \
-        else 0
-    if n_quads >= QUAD_CLUSTER_MIN:
-        raise NotImplementedError(
-            f"{n_quads} quads (>= {QUAD_CLUSTER_MIN}) need sub-slice K2(c) "
-            "quad clusters, not ported yet")
-    kind = _np(scene.mat_kind)
     feats = scene.features
-    media_mats = np.zeros(0, np.int32)
-    if "media" in feats:
+    if "media" in feats and "image" in feats:
         media_mats = np.concatenate([
             _np(scene.msph_mat)[_np(scene.msph_mask) > 0],
             _np(scene.mbox_mat)[_np(scene.mbox_mask) > 0]])
-    if "image" in feats and np.any(
-            _np(scene.tex_kind)[_np(scene.mat_tex)[media_mats]]
-            == TEX_IMAGE):
-        raise NotImplementedError(
-            "image-textured constant media run only on the JAX package's "
-            "XLA path, not ported yet")
-    if integrator == "mis":
-        if not mis_lights_ok(scene):
+        if np.any(_np(scene.tex_kind)[_np(scene.mat_tex)[media_mats]]
+                  == TEX_IMAGE):
             raise NotImplementedError(
-                "integrator 'mis' runs in-kernel with 1 to 16 NEE lights; "
-                f"the scene has {int(_np(scene.light_mask).sum())}")
-        if np.any(kind == ISOTROPIC):
-            mats = np.concatenate([
-                _np(scene.sph_mat)[_np(scene.sph_mask) > 0],
-                _np(scene.quad_mat)[_np(scene.quad_mask) > 0],
-                _np(scene.box_mat)[_np(scene.box_mask) > 0], media_mats])
-            if np.any(kind[mats] == ISOTROPIC):
-                raise NotImplementedError(
-                    "isotropic materials and media under 'mis' need "
-                    "sub-slice K2(c) media with the MIS isotropic branch, "
-                    "not ported yet")
+                "image-textured constant media run only on the JAX "
+                "package's XLA path, not ported yet")
+    if integrator == "mis" and not mis_lights_ok(scene):
+        raise NotImplementedError(
+            "integrator 'mis' runs in-kernel with 1 to 16 NEE lights; "
+            f"the scene has {int(_np(scene.light_mask).sum())}")
     return True
 
 
@@ -222,6 +208,50 @@ def pack_box_attrs(scene: Scene, order: np.ndarray) -> np.ndarray:
                                _np(scene.tex_noise_scale)[mtex],
                                _np(scene.tex_inv_scale)[mtex])
     return att
+
+
+def cluster_quad_table(scene: Scene, qtab: np.ndarray):
+    """(qtab', n_quads, n_qclusters): the quad table ``qtab`` [Q, 32]
+    SAH-clustered over the quads' corner AABBs once the scene has
+    QUAD_CLUSTER_MIN quads (pallas_megakernel.py:209-265).  The rows are
+    permuted cluster-contiguous, padding quads last in a cluster of their
+    own whose bounds (about 3.2e38) no ray enters before its best t, and a
+    metadata row [lo3, hi3, start, end] per cluster is appended after the
+    quad rows; ``n_quads`` counts the quad rows only.  Below the threshold
+    the table is returned untouched (the linear scan)."""
+    from ..native import build_aabb_clusters
+
+    n_rows = qtab.shape[0]
+    if "quads" not in scene.features:
+        return qtab, 0, 0
+    mask = _np(scene.quad_mask) > 0
+    if int(mask.sum()) < QUAD_CLUSTER_MIN:
+        return qtab, n_rows, 0
+    act = np.where(mask)[0]
+    pad = np.where(~mask)[0]
+    q = qtab[act, Q_QX:Q_QX + 3]
+    u = qtab[act, Q_UX:Q_UX + 3]
+    v = qtab[act, Q_VX:Q_VX + 3]
+    corners = [q, q + u, q + v, q + u + v]
+    lo = np.minimum.reduce(corners) - 1e-4
+    hi = np.maximum.reduce(corners) + 1e-4
+    order, cl_start, cl_min, cl_max = build_aabb_clusters(
+        lo.astype(np.float32), hi.astype(np.float32), max_leaf=QUAD_MAX_LEAF)
+    perm = np.concatenate([act[np.asarray(order)], pad]).astype(np.int64)
+    starts = np.asarray(cl_start, np.int64).tolist()
+    mins, maxs = list(cl_min), list(cl_max)
+    if pad.size:
+        starts.append(starts[-1] + int(pad.size))
+        mins.append(np.full(3, 3.2e38, np.float32))
+        maxs.append(np.full(3, 3.3e38, np.float32))
+    n_qc = len(starts) - 1
+    meta = np.zeros((n_qc, Q_COLS), np.float32)
+    meta[:, 0:3] = mins
+    meta[:, 3:6] = maxs
+    meta[:, 6] = starts[:-1]
+    meta[:, 7] = starts[1:]
+    return (np.concatenate([qtab[perm], meta]).astype(np.float32), n_rows,
+            n_qc)
 
 
 def pack_media_table(scene: Scene):
@@ -432,7 +462,7 @@ class Prepared:
     cls: torch.Tensor  # [C+1] i32: cluster starts, divided by unroll
     sclb: torch.Tensor  # [S, 8] f32: super-cluster bounds
     scls: torch.Tensor  # [S+1] i32: super-cluster starts (in clusters)
-    qtab: torch.Tensor  # [max(Q, 1), 32] f32: quad frames + materials
+    qtab: torch.Tensor  # [max(Q, 1) + QC, 32] f32: quads, cluster rows
     ltab: torch.Tensor  # [max(L, 1), 24] f32: NEE lights (zeros unless mis)
     btab: torch.Tensor  # [NB, 8] f32: box lo3, hi3 (box cluster order)
     batt: torch.Tensor  # [NB, 12] f32: box winner attributes
@@ -450,6 +480,7 @@ class Prepared:
     n_ssc_static: int  # leading super-clusters of static spheres (split)
     unroll: int
     n_quads: int  # quad rows the kernels scan (0 without quads)
+    n_qclusters: int  # quad clusters (metadata rows after the quads), or 0
     n_lights: int  # NEE lights (0 unless mis)
     n_boxes: int  # box rows (0 without boxes)
     n_bclusters: int
@@ -560,13 +591,14 @@ def _upload(tables: dict, device) -> dict:
 
 
 def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
-                       height: int, device, tile_rows: int = TILE_ROWS,
+                       height: int, device="cuda", tile_rows: int = TILE_ROWS,
                        mis: bool = False, stratified: bool = False,
                        sqrt_spp: int = 0) -> Prepared:
     """SAH clustering + table packing (pallas_megakernel.py:2175-2511), on
-    ``device``.  The sphere and box loops are unrolled by 4 unless Perlin
-    marble dominates the scene or the integrator is MIS, as in the JAX
-    package."""
+    ``device`` (``"cuda"`` raises without a card).  The sphere and box loops
+    are unrolled by 4 unless Perlin marble dominates the scene or the
+    integrator is MIS, as in the JAX package."""
+    device = _cuda.device(device)
     megakernel_eligible(scene, "mis" if mis else "path")
     if stratified and sqrt_spp < 1:
         raise ValueError("stratified sampling needs sqrt_spp >= 1")
@@ -636,8 +668,8 @@ def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
                         else (np.zeros((1, 3), np.float32),
                               np.zeros((1, 3), np.int32)))
 
-    qtab = _np(pack_quad_table(scene))
-    n_quads = qtab.shape[0] if "quads" in scene.features else 0
+    qtab, n_quads, n_qclusters = cluster_quad_table(
+        scene, _np(pack_quad_table(scene)))
     ltab, n_lights = (pack_light_table(scene) if mis
                       else (np.zeros((1, L_COLS), np.float32), 0))
 
@@ -665,7 +697,8 @@ def prepare_megakernel(scene: Scene, cam: CameraParams, *, width: int,
             device),
         n_clusters=n_clusters, n_sclusters=n_sclusters,
         n_ssc_static=int(n_ssc_static), unroll=unroll,
-        n_quads=n_quads, n_lights=n_lights, n_boxes=n_boxes,
+        n_quads=n_quads, n_qclusters=n_qclusters, n_lights=n_lights,
+        n_boxes=n_boxes,
         n_bclusters=n_bclusters, b_unroll=b_unroll, n_media=n_media,
         rows=rows, tile_rows=tile_rows, width=width, height=height,
         sky_bg=cam.bg_mode == BG_SKY, defocus=bool(cam.lens_radius_gt0),
@@ -723,7 +756,7 @@ def path_params(t: Prepared, seed: int, *, spp: int, max_depth: int,
                 sample_offset: int = 0,
                 work: torch.Tensor | None = None) -> _cuda.PathParams:
     """The C struct ``rtt::Params`` of a launch on ``t``'s tables.  ``work``
-    (int64 [7], optional) receives the launch's counts named by WORK_NAMES,
+    (int64 [8], optional) receives the launch's counts named by WORK_NAMES,
     added to what it holds; it selects the counting instance of the kernel,
     so a timed launch passes none."""
     if work is not None:
@@ -735,7 +768,8 @@ def path_params(t: Prepared, seed: int, *, spp: int, max_depth: int,
         n_clusters=t.n_clusters, sclb=t.sclb.data_ptr(),
         scls=t.scls.data_ptr(), n_sclusters=t.n_sclusters,
         n_ssc_static=t.n_ssc_static, unroll=t.unroll,
-        qtab=t.qtab.data_ptr(), n_quads=t.n_quads, ltab=t.ltab.data_ptr(),
+        qtab=t.qtab.data_ptr(), n_quads=t.n_quads,
+        n_qclusters=t.n_qclusters, ltab=t.ltab.data_ptr(),
         n_lights=t.n_lights, btab=t.btab.data_ptr(), batt=t.batt.data_ptr(),
         bclb=t.bclb.data_ptr(), bcls=t.bcls.data_ptr(), n_boxes=t.n_boxes,
         n_bclusters=t.n_bclusters, b_unroll=t.b_unroll,
@@ -771,6 +805,46 @@ def respawn_pass_plain(tables: Prepared, seed: int, sample_offset: int,
     return state[wf.R_SX:wf.R_SX + 3].T.contiguous()
 
 
+def mono_pass_plain(tables: Prepared, seed: int, sample_offset: int,
+                    spp: int, max_depth: int) -> torch.Tensor:
+    """Plain twin of K4, vectorised over lanes: for each sample, spawn
+    every lane, bounce the live lanes until none is alive, and add the
+    paths' radiance to the sums.  Returns the radiance sums [R, 3] in slot
+    order."""
+    from . import wavefront as wf
+
+    R = tables.n_lanes
+    dev = tables.geom.device
+    key = seed_key(seed)
+    slot = torch.arange(R, dtype=torch.int64, device=dev)
+    sums = torch.zeros((3, R), dtype=torch.float32, device=dev)
+    for k in range(spp):
+        sample = torch.full((R,), k + sample_offset, dtype=torch.int64,
+                            device=dev)
+        v = wf.spawn_lanes(tables, slot, sample, key)
+        zero = torch.zeros_like(v["b"])
+        v.update(rx=zero, ry=zero, rz=zero)
+        while wf.bounce_live(tables, v, slot, sample, key, max_depth):
+            pass
+        sums = sums + torch.stack([v["rx"], v["ry"], v["rz"]])
+    return sums.T.contiguous()
+
+
+def _megakernel_launch(name: str, tables: Prepared, seed: int,
+                       sample_offset: int, spp: int, max_depth: int,
+                       work: torch.Tensor | None) -> torch.Tensor:
+    """One launch of megakernel ``name`` ("megakernel" K3 or "mono" K4)
+    over every slot: the radiance sums [R, 3]."""
+    check_tables(tables)
+    R = tables.n_lanes
+    out = torch.empty((R, 3), dtype=torch.float32, device=tables.geom.device)
+    params = path_params(tables, seed, spp=spp, max_depth=max_depth,
+                         sample_offset=sample_offset, work=work)
+    _cuda.launch(name, out.data_ptr(), R, ctypes.addressof(params),
+                 int(tables.mis), int(tables.book2))
+    return out
+
+
 def respawn_pass(tables: Prepared, seed: int, sample_offset: int, spp: int,
                  max_depth: int, work: torch.Tensor | None = None
                  ) -> torch.Tensor:
@@ -781,25 +855,40 @@ def respawn_pass(tables: Prepared, seed: int, sample_offset: int, spp: int,
     if tables.geom.device.type == "cpu":
         return respawn_pass_plain(tables, seed, sample_offset, spp,
                                   max_depth)
-    check_tables(tables)
-    R = tables.n_lanes
-    out = torch.empty((R, 3), dtype=torch.float32, device=tables.geom.device)
-    params = path_params(tables, seed, spp=spp, max_depth=max_depth,
-                         sample_offset=sample_offset, work=work)
-    _cuda.launch("megakernel", out.data_ptr(), R, ctypes.addressof(params),
-                 int(tables.mis), int(tables.book2))
-    return out
+    return _megakernel_launch("megakernel", tables, seed, sample_offset, spp,
+                              max_depth, work)
+
+
+def mono_pass(tables: Prepared, seed: int, sample_offset: int, spp: int,
+              max_depth: int, work: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """One K4 launch over every slot: the same sums as ``respawn_pass``,
+    bitwise, each lane running its samples one after another.  CUDA tables
+    launch ``csrc/mono.cu``; CPU tables run ``mono_pass_plain``."""
+    if tables.geom.device.type == "cpu":
+        return mono_pass_plain(tables, seed, sample_offset, spp, max_depth)
+    return _megakernel_launch("mono", tables, seed, sample_offset, spp,
+                              max_depth, work)
 
 
 def render_pass_megakernel(scene: Scene, cam: CameraParams, seed: int, *,
                            width: int, height: int, spp: int, max_depth: int,
                            sample_offset: int = 0, mis: bool = False,
                            stratified: bool = False, sqrt_spp: int = 0,
-                           device, step=respawn_pass) -> torch.Tensor:
-    """Whole-image render pass in one K3 launch (pallas_megakernel.py:
-    2547-2594); returns the radiance SUM [H, W, 3].  ``step`` is the pass:
-    ``respawn_pass``, or ``respawn_pass_plain`` on any device for
-    comparisons with the kernel."""
+                           respawn: bool = False, device="cuda",
+                           step=None) -> torch.Tensor:
+    """Whole-image render pass in one launch (pallas_megakernel.py:
+    2547-2594): the monolithic megakernel K4, or with ``respawn`` the
+    respawn megakernel K3; returns the radiance SUM [H, W, 3].  ``step``
+    replaces the pass (``mono_pass_plain`` or ``respawn_pass_plain`` on any
+    device, for comparisons with the kernels).  Image-textured scenes raise
+    ``ValueError``: they take the wavefront image route
+    (pallas_megakernel.py:2102-2105)."""
+    if "image" in scene.features:
+        raise ValueError("image textures take the wavefront image route "
+                         "(ops/wavefront.py), not the megakernels")
+    if step is None:
+        step = respawn_pass if respawn else mono_pass
     tables = prepare_megakernel_cached(
         scene, cam, width=width, height=height,
         tile_rows=respawn_tile_rows(scene), mis=mis, stratified=stratified,

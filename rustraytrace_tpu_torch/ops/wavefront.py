@@ -1,8 +1,9 @@
-"""The persist path tracer's launch loop, K2 and the plain twin of the
-shading that K2 and K3 share (counterparts:
-``rustraytrace_tpu/ops/pallas_wavefront.py`` and ``_make_kernel`` in
-``pallas_megakernel.py``: intersect :714-1200, bounce_body :1202-1771,
-spawn_rays :1817, the persist branch :1856-1991).
+"""The persist path tracer's launch loop, K2, the per-bounce segment loop,
+K5, and the plain twin of the shading that every path kernel shares
+(counterparts: ``rustraytrace_tpu/ops/pallas_wavefront.py`` and
+``_make_kernel`` in ``pallas_megakernel.py``: intersect :714-1200,
+bounce_body :1202-1771, the segment branch :1773-1815, spawn_rays :1817,
+the persist branch :1856-1991).
 
 ``render_pass_wavefront`` routes as the JAX package does: image-textured
 scenes take the image route (the persist launch loop at the image route's
@@ -10,9 +11,12 @@ tile height and launch bound, sorted with per-tile adaptive bounds on
 scenes of >= 256 primitives); other scenes on ``sorted_persist_route``
 (>= 256 primitives, at most 2 Mi slot lanes) run the sorted persist launch
 loop; every other scene goes to the respawn megakernel K3
-(``ops/megakernel.py``).  The JAX image route froze a lane on an image hit
-and resolved its texel in XLA between launches; here the kernels fetch
-texels themselves, so the image route is the same loop without freezes.
+(``ops/megakernel.py``).  With ``per_bounce_segments`` an image scene runs
+the segment loop instead: one K5 launch per bounce of every live lane, with
+the bank and respawn between launches in plain PyTorch.  The JAX image
+route froze a lane on an image hit and resolved its texel in XLA between
+launches; here the kernels fetch texels themselves, so the image route is
+the same loop without freezes.
 
 A pass keeps one lane per pixel slot (32x32 screen-block swizzle).  Each
 launch of ``persist_step`` advances every lane through up to
@@ -79,9 +83,10 @@ RR_START_BOUNCE = 5
 RR_P_MIN = 0.05
 RR_P_MAX = 0.95
 N_STATE = 20
+N_SEG = 15  # rows of the segment kernel's state: the first 15 of N_STATE
 
-# state rows read by the launch loop and the sort
-R_OX, R_DX, R_DONE, R_SX, R_MID = 1, 4, 15, 16, 19
+# state rows read by the launch loops and the sort
+R_OX, R_DX, R_RX, R_ALIVE, R_DONE, R_SX, R_MID = 1, 4, 10, 13, 15, 16, 19
 
 # rays x table rows per chunk of the plain intersector's row scans
 _PLAIN_CHUNK_ELEMS = 1 << 22
@@ -495,11 +500,19 @@ def _media_hits_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a, bt,
     return mi
 
 
+def _quad_rows_min(qtab: torch.Tensor, ox, oy, oz, dx, dy, dz):
+    """(least hit t [n], first row at it [n]) of rays against the quad rows
+    ``qtab`` [M, 32] (csrc/path.cuh ``scan_quads``); ``_BIG`` where none."""
+    tq, okq = quad_hits(qtab, *(x[:, None] for x in (ox, oy, oz, dx, dy, dz)))
+    return torch.min(torch.where(okq, tq, _BIG), dim=1)
+
+
 def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a,
                      tm=None, u_media=None):
     """(best t, sphere row, quad row, box row, medium) [n] each, -1 where
     that class did not set the best t: spheres through the kernels' cluster
-    cull, then the boxes through theirs, then every quad, then the constant
+    cull, then the boxes through theirs, then the quads (through their
+    cluster cull when there are two or more quad clusters), then the constant
     media (``u_media``: a uniform per medium), each with a strict ``<`` in
     table order, so an earlier class wins a tie.  The last class that set
     its row is the winner."""
@@ -510,10 +523,17 @@ def _intersect_plain(prep: Prepared, ox, oy, oz, dx, dy, dz, a, inv_a,
         iv = [_safe_inv(x) for x in (dx, dy, dz)]
         boxi = _box_hits_plain(prep, ox, oy, oz, iv, bt)
     qi = neg
-    if prep.n_quads:
-        tq, okq = quad_hits(prep.qtab[:prep.n_quads], *(
-            x[:, None] for x in (ox, oy, oz, dx, dy, dz)))
-        qt, qbest = torch.min(torch.where(okq, tq, _BIG), dim=1)
+    if prep.n_qclusters > 1:
+        qi = neg.clone()
+        meta = prep.qtab[prep.n_quads:].tolist()
+        _culled_min(
+            bt, qi, [(m[:6], int(m[6]), int(m[7])) for m in meta],
+            lambda lo, hi, sel: _quad_rows_min(
+                prep.qtab[lo:hi], *(x[sel] for x in (ox, oy, oz, dx, dy, dz))),
+            ox, oy, oz, [_safe_inv(x) for x in (dx, dy, dz)])
+    elif prep.n_quads:
+        qt, qbest = _quad_rows_min(prep.qtab[:prep.n_quads], ox, oy, oz, dx,
+                                   dy, dz)
         take = qt < bt
         bt = torch.where(take, qt, bt)
         qi = torch.where(take, qbest, qi)
@@ -794,7 +814,7 @@ def _bounce_plain(prep: Prepared, v: dict, u, u_mis, u_media,
     """One bounce of live lanes (bounce_body, pallas_megakernel.py:1202-1771:
     spheres, moving or not, boxes, quads and constant media; solid, checker,
     Perlin-marble and image albedos; the path integrator, or with
-    ``prep.mis`` the NEE/MIS estimator without its isotropic branch),
+    ``prep.mis`` the NEE/MIS estimator),
     updating ``v`` in place.  ``u_mis`` holds u5-u10, ``u_media`` a uniform
     per medium.  Expression order matches csrc/path.cuh, which is built
     without contracted multiply-adds, so the two round identically."""
@@ -947,8 +967,8 @@ def _bounce_plain(prep: Prepared, v: dict, u, u_mis, u_media,
 
     is_met = kind == float(METAL)
     is_die = kind == float(DIELECTRIC)
+    is_iso = kind == float(ISOTROPIC)
     if not prep.mis:
-        is_iso = kind == float(ISOTROPIC)
         ndx = torch.where(is_met, mx, torch.where(
             is_die, ex, torch.where(is_iso, rvx, lx)))
         ndy = torch.where(is_met, my, torch.where(
@@ -996,13 +1016,18 @@ def _bounce_plain(prep: Prepared, v: dict, u, u_mis, u_media,
         # cosine-weighted material direction (vec3.rs:212-221)
         bux, buy, buz, bvx, bvy, bvz = _onb(nx, ny, nz)
         phi2 = _TWO_PI * u5
+        cph, sph = torch.cos(phi2), torch.sin(phi2)
         sq6 = torch.sqrt(u6)
-        clx = torch.cos(phi2) * sq6
-        cly = torch.sin(phi2) * sq6
+        clx = cph * sq6
+        cly = sph * sq6
         clz = torch.sqrt(torch.clamp(1.0 - u6, min=0.0))
-        mdx = clx * bux + cly * bvx + clz * nx
-        mdy = clx * buy + cly * bvy + clz * ny
-        mdz = clx * buz + cly * bvz + clz * nz
+        # isotropic lanes: the uniform sphere from the same u5, u6
+        # (material.rs:177-190, pdf.rs:19-29)
+        z_i = u6 * 2.0 - 1.0
+        r_i = torch.sqrt(torch.clamp(1.0 - z_i * z_i, min=0.0))
+        mdx = torch.where(is_iso, cph * r_i, clx * bux + cly * bvx + clz * nx)
+        mdy = torch.where(is_iso, sph * r_i, clx * buy + cly * bvy + clz * ny)
+        mdz = torch.where(is_iso, z_i, clx * buz + cly * bvz + clz * nz)
         # the picked light's direction: light l when u9 * n >= l
         dirs = _light_samples(prep, px_, py_, pz_, u7, u8)
         ldx, ldy, ldz = dirs[0]
@@ -1019,7 +1044,10 @@ def _bounce_plain(prep: Prepared, v: dict, u, u_mis, u_media,
         g2 = torch.clamp(gdx * gdx + gdy * gdy + gdz * gdz, min=1e-30)
         ginv = 1.0 / torch.sqrt(g2)
         cos_th = (nx * gdx + ny * gdy + nz * gdz) * ginv
-        cpdf = torch.clamp(cos_th, min=0.0) * _INV_PI  # pdf.rs:41-49
+        # cosine pdf (pdf.rs:41-49); an isotropic lane's mixture and
+        # scattering pdf are both the uniform sphere's 1/4pi
+        cpdf = torch.where(is_iso, 0.25 * _INV_PI,
+                           torch.clamp(cos_th, min=0.0) * _INV_PI)
         lp = light_pdf(prep, px_, py_, pz_, gdx, gdy, gdz, g2, ginv)
         pdfv = 0.5 * lp + 0.5 * cpdf  # pdf.rs:88-91
         ok_diff = pdfv > 0.0
@@ -1048,6 +1076,51 @@ def _bounce_plain(prep: Prepared, v: dict, u, u_mis, u_media,
 
 _NAMES = ("tm", "ox", "oy", "oz", "dx", "dy", "dz", "ax", "ay", "az",
           "rx", "ry", "rz", "alive", "b", "done", "sx", "sy", "sz", "mid")
+# the rows one bounce reads and writes: the segment kernel's state
+_SEG_NAMES = _NAMES[:N_SEG]
+
+
+def spawn_lanes(prep: Prepared, slot: torch.Tensor, sample: torch.Tensor,
+                key) -> dict:
+    """The camera rays of absolute samples ``sample`` in slots ``slot``
+    (int64 [n] each; spawn_rays, pallas_megakernel.py:1817-1854), as every
+    path kernel spawns them: the rows of ``_SEG_NAMES`` but the radiance,
+    with unit attenuation, bounce count 0, alive."""
+    px, py = _slot_xy(slot, prep.width, prep.height)
+    u = uniforms4(slot, sample, 0, STREAM_CAMERA, key)
+    o, d = spawn_rays(prep.cam_u, px.to(torch.float32), py.to(torch.float32),
+                      *u, prep.defocus, sample=sample, sqrt_spp=prep.sqrt_spp)
+    zero = torch.zeros_like(o[0])
+    one = torch.ones_like(o[0])
+    # the ray's time of a moving scene (the_next_week/camera.rs:160-162)
+    tm = (uniforms4(slot, sample, 0, STREAM_TIME, key)[0] if prep.moving
+          else zero)
+    return dict(tm=tm, ox=o[0], oy=o[1], oz=o[2], dx=d[0], dy=d[1], dz=d[2],
+                ax=one, ay=one, az=one, alive=one, b=zero)
+
+
+def bounce_live(prep: Prepared, v: dict, slot: torch.Tensor,
+                sample: torch.Tensor, key, max_depth: int) -> bool:
+    """One bounce of the lanes of ``v`` (rows ``_SEG_NAMES``) that are
+    alive, keyed by their ``slot`` and ``sample`` (int64 [n] each);
+    updates ``v`` in place.  Returns whether any lane was alive."""
+    live = (v["alive"] > 0.0).nonzero().squeeze(1)
+    if live.numel() == 0:
+        return False
+    sub = {k: v[k][live] for k in _SEG_NAMES}
+    counter = (slot[live], sample[live], sub["b"].to(torch.int64))
+    u = uniforms4(*counter, STREAM_BOUNCE, key)
+    u_mis = None
+    if prep.mis:
+        u_mis = (uniforms4(*counter, STREAM_MIS_A, key)
+                 + uniforms4(*counter, STREAM_MIS_B, key)[:2])
+    # medium m's uniform: word m % 4 of stream STREAM_MEDIA + m // 4
+    u_media = [w for g in range(-(-prep.n_media // 4))
+               for w in uniforms4(*counter, STREAM_MEDIA + g, key)]
+    _bounce_plain(prep, sub, u, u_mis, u_media, max_depth)
+    for k in _SEG_NAMES:
+        v[k] = v[k].index_put((live,), sub[k])
+    return True
 
 
 def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
@@ -1056,6 +1129,7 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
     """One persist iteration (pbody, pallas_megakernel.py:1904-1962) of the
     lanes in ``st`` [20, n]; returns the new [20, n] state."""
     v = dict(zip(_NAMES, st.unbind(0)))
+    slot = slot.to(torch.int64)
     # 1) bank dead unbanked paths
     fin = (v["mid"] > 0.0) & (v["alive"] <= 0.0)
     for r, s in (("rx", "sx"), ("ry", "sy"), ("rz", "sz")):
@@ -1069,36 +1143,12 @@ def _iteration_plain(prep: Prepared, st: torch.Tensor, slot: torch.Tensor,
     sample = v["done"].to(torch.int64) + sample_offset
     spawn_ok = (v["mid"] <= 0.0) & (v["done"] < float(spp))
     if bool(spawn_ok.any()):
-        px, py = _slot_xy(slot.to(torch.int64), prep.width, prep.height)
-        u = uniforms4(slot.to(torch.int64), sample, 0, STREAM_CAMERA, key)
-        o, d = spawn_rays(prep.cam_u, px.to(torch.float32),
-                          py.to(torch.float32), *u, prep.defocus,
-                          sample=sample, sqrt_spp=prep.sqrt_spp)
-        # the ray's time of a moving scene (the_next_week/camera.rs:160-162)
-        tm = (uniforms4(slot.to(torch.int64), sample, 0, STREAM_TIME, key)[0]
-              if prep.moving else 0.0)
-        new = dict(tm=tm, ox=o[0], oy=o[1], oz=o[2], dx=d[0], dy=d[1],
-                   dz=d[2], ax=1.0, ay=1.0, az=1.0, b=0.0, alive=1.0,
-                   mid=1.0)
+        new = spawn_lanes(prep, slot, sample, key)
+        new["mid"] = 1.0
         for k, nv in new.items():
             v[k] = torch.where(spawn_ok, nv, v[k])
     # 3) one bounce of the live lanes
-    live = (v["alive"] > 0.0).nonzero().squeeze(1)
-    if live.numel():
-        sub = {k: v[k][live] for k in _NAMES}
-        counter = (slot[live].to(torch.int64), sample[live],
-                   sub["b"].to(torch.int64))
-        u = uniforms4(*counter, STREAM_BOUNCE, key)
-        u_mis = None
-        if prep.mis:
-            u_mis = (uniforms4(*counter, STREAM_MIS_A, key)
-                     + uniforms4(*counter, STREAM_MIS_B, key)[:2])
-        # medium m's uniform: word m % 4 of stream STREAM_MEDIA + m // 4
-        u_media = [w for g in range(-(-prep.n_media // 4))
-                   for w in uniforms4(*counter, STREAM_MEDIA + g, key)]
-        _bounce_plain(prep, sub, u, u_mis, u_media, max_depth)
-        for k in _NAMES:
-            v[k] = v[k].index_put((live,), sub[k])
+    bounce_live(prep, v, slot, sample, key, max_depth)
     return torch.stack([v[k] for k in _NAMES])
 
 
@@ -1164,6 +1214,41 @@ def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
     _cuda.launch("persist", state.data_ptr(), slot.data_ptr(), R,
                  ctypes.addressof(params), persist_iters, int(tables.mis),
                  int(tables.book2), tb_ptr, int(tile_lanes))
+
+
+def segment_step_plain(state: torch.Tensor, sample: torch.Tensor,
+                       tables: Prepared, seed: int, *, max_depth: int) -> None:
+    """Plain twin of the segment kernel K5: one bounce of the live lanes of
+    ``state`` [15, R] (lane = slot), keyed by the absolute sample index of
+    each lane's path ``sample`` (int32 [R]); dead lanes are not touched.
+    Updates ``state`` in place."""
+    v = dict(zip(_SEG_NAMES, state.unbind(0)))
+    slot = torch.arange(state.shape[1], dtype=torch.int64,
+                        device=state.device)
+    bounce_live(tables, v, slot, sample.to(torch.int64), seed_key(seed),
+                max_depth)
+    state.copy_(torch.stack([v[k] for k in _SEG_NAMES]))
+
+
+def segment_step(state: torch.Tensor, sample: torch.Tensor,
+                 tables: Prepared, seed: int, *, max_depth: int,
+                 work: torch.Tensor | None = None) -> None:
+    """One K5 launch, in place: one bounce of every live lane of ``state``
+    [15, R], keyed by ``sample`` (int32 [R]).  CUDA tensors launch
+    ``csrc/segment.cu``; CPU tensors run ``segment_step_plain``.  The path
+    integrator only.  ``work`` as in ``megakernel.path_params``."""
+    if tables.mis:
+        raise ValueError("the segment kernel runs the path integrator only")
+    if state.device.type == "cpu":
+        return segment_step_plain(state, sample, tables, seed,
+                                  max_depth=max_depth)
+    R = tables.n_lanes
+    _cuda.require(state, "state", torch.float32, (N_SEG, R))
+    _cuda.require(sample, "sample", torch.int32, (R,))
+    check_tables(tables)
+    params = path_params(tables, seed, spp=1, max_depth=max_depth, work=work)
+    _cuda.launch("segment", state.data_ptr(), sample.data_ptr(), R,
+                 ctypes.addressof(params), int(tables.book2))
 
 
 # ------------------------------------------------------------ launch loop
@@ -1256,12 +1341,60 @@ def _wavefront_pass_persist(tables: Prepared, seed: int, sample_offset: int,
     return sums
 
 
+def _wavefront_pass_segments(tables: Prepared, seed: int, sample_offset: int,
+                             *, spp: int, max_depth: int,
+                             stats: dict | None = None) -> torch.Tensor:
+    """Per-bounce segment loop of one render pass (_wavefront_pass,
+    pallas_wavefront.py:814-955).  Returns the banked radiance sums [R, 3]
+    in slot order.
+
+    Every lane spawns sample ``sample_offset``.  Then, while any lane is
+    alive and at most ``spp * max_depth + 1`` times, one ``segment_step``
+    bounces the live lanes; the lanes that died in it bank their radiance, and those
+    with samples left respawn their next sample with attenuation, radiance
+    and bounce count reset.  The bank and respawn are plain PyTorch, with
+    the kernels' slot-keyed draws, so the sums equal K3's and the unsorted
+    persist loop's bitwise.  ``stats`` receives the segment count as
+    ``launches``."""
+    R = tables.n_lanes
+    dev = tables.geom.device
+    key = seed_key(seed)
+    slot = torch.arange(R, dtype=torch.int64, device=dev)
+    sample = torch.full((R,), sample_offset, dtype=torch.int64, device=dev)
+    v = spawn_lanes(tables, slot, sample, key)
+    zero = torch.zeros(R, dtype=torch.float32, device=dev)
+    state = torch.stack([v.get(k, zero) for k in _SEG_NAMES])
+    done = zero
+    sums = torch.zeros((3, R), dtype=torch.float32, device=dev)
+    g = 0
+    while g < spp * max_depth + 1 and bool((state[R_ALIVE] > 0.0).any()):
+        was = state[R_ALIVE] > 0.0
+        segment_step(state, sample.to(torch.int32), tables, seed,
+                     max_depth=max_depth)
+        fin = was & (state[R_ALIVE] <= 0.0)
+        sums = sums + torch.where(fin, state[R_RX:R_RX + 3], 0.0)
+        done = done + torch.where(fin, 1.0, 0.0)
+        nxt = fin & (done < float(spp))
+        sample = done.to(torch.int64) + sample_offset
+        new = spawn_lanes(tables, slot, sample, key)
+        finz = torch.where(fin, 0.0, 1.0)
+        state = torch.stack([
+            state[r] * finz if k in ("rx", "ry", "rz")
+            else torch.where(nxt, new[k], state[r])
+            for r, k in enumerate(_SEG_NAMES)])
+        g += 1
+    if stats is not None:
+        stats["launches"] = g
+    return sums.T.contiguous()
+
+
 def render_pass_wavefront(scene: Scene, cam, seed: int, *, width: int,
                           height: int, spp: int, max_depth: int,
                           sample_offset: int = 0, mis: bool = False,
                           stratified: bool = False, sqrt_spp: int = 0,
+                          per_bounce_segments: bool = False,
                           step=persist_step, respawn_step=respawn_pass,
-                          device, stats: dict | None = None
+                          device="cuda", stats: dict | None = None
                           ) -> torch.Tensor:
     """Whole-image render pass (pallas_wavefront.py:973-1073); returns the
     radiance SUM [H, W, 3] (the render.render_pass contract).
@@ -1274,14 +1407,24 @@ def render_pass_wavefront(scene: Scene, cam, seed: int, *, width: int,
     the launch (``persist_step``, or ``persist_step_plain`` on any device
     for comparisons with the kernel), and ``stats`` receives the loop's
     counts.  The rest go to the respawn megakernel K3
-    (``render_pass_megakernel``) with ``respawn_step`` as its pass."""
+    (``render_pass_megakernel``) with ``respawn_step`` as its pass.
+
+    ``per_bounce_segments`` (pallas_wavefront.py:983, 1074-1085) sends an
+    image scene through the per-bounce segment loop (K5) at
+    ``wavefront_tile_rows`` instead, and raises ``ValueError`` with
+    ``mis``; a non-image scene then skips the
+    sorted route and goes to K3."""
     image = "image" in scene.features
-    if not image and not sorted_persist_route(scene, width, height):
+    if image and per_bounce_segments and mis:
+        raise ValueError("per_bounce_segments does not drive MIS; use the "
+                         "persist route")
+    if not image and (per_bounce_segments
+                      or not sorted_persist_route(scene, width, height)):
         return render_pass_megakernel(
             scene, cam, seed, width=width, height=height, spp=spp,
             max_depth=max_depth, sample_offset=sample_offset, mis=mis,
-            stratified=stratified, sqrt_spp=sqrt_spp, device=device,
-            step=respawn_step)
+            stratified=stratified, sqrt_spp=sqrt_spp, respawn=True,
+            device=device, step=respawn_step)
     if image:
         tile_rows = wavefront_tile_rows(scene)
         sort = ray_sort_heuristic(scene, slot_lane_count(width, height))
@@ -1295,9 +1438,14 @@ def render_pass_wavefront(scene: Scene, cam, seed: int, *, width: int,
     tables = prepare_megakernel_cached(
         scene, cam, width=width, height=height, tile_rows=tile_rows, mis=mis,
         stratified=stratified, sqrt_spp=sqrt_spp, device=device)
-    sums = _wavefront_pass_persist(
-        tables, seed, sample_offset, spp=spp, max_depth=max_depth,
-        persist_iters=iters, sort_rays=sort, sort_every=sort_every,
-        adaptive_bounds=adaptive, step=step, stats=stats)
+    if per_bounce_segments:
+        sums = _wavefront_pass_segments(
+            tables, seed, sample_offset, spp=spp, max_depth=max_depth,
+            stats=stats)
+    else:
+        sums = _wavefront_pass_persist(
+            tables, seed, sample_offset, spp=spp, max_depth=max_depth,
+            persist_iters=iters, sort_rays=sort, sort_every=sort_every,
+            adaptive_bounds=adaptive, step=step, stats=stats)
     idx = unswizzle_index_on(width, height, sums.device)
     return sums[idx].reshape(height, width, 3)

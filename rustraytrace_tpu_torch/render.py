@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .config import CameraParams, RenderConfig, derive_camera
+from .ops._cuda import device as _device
 from .ops.megakernel import megakernel_eligible
 from .scene import Scene
 
@@ -42,16 +43,6 @@ _PASS_RAY_TARGET = 64 * 1024 * 1024
 _PASS_SPP_CAP = 1024
 _PASS_SPP_FLOOR = 32
 _DEFAULT_SPP_PER_PASS = 16
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise NotImplementedError(f"device type {dev.type!r}")
-    return dev
 
 
 def finalize_image(accum_sum: np.ndarray, spp_total: int) -> np.ndarray:

@@ -81,8 +81,8 @@ def test_scene_from_numpy_bit_equal(name):
 
 
 def _unported_scene(case):
-    """A JAX-built scene (converted to the port) with a feature the port's
-    kernels do not cover yet."""
+    """A JAX-built scene (converted to the port) with a feature that the
+    port's kernels did not cover before its sub-slice was ported."""
     from rustraytrace_tpu.scene import SceneBuilder as JaxSceneBuilder
 
     b = JaxSceneBuilder()
@@ -104,13 +104,18 @@ def _unported_scene(case):
     ("quads_32", "K2(c) quad clusters"), ("fog_sphere_mis", "K2(c) media"),
     ("smoke_box_mis", "K2(c) media")])
 def test_unported_features_raise_naming_the_sub_slice(case, sub_slice):
-    """What stays unported: SAH-clustered quads (32 or more) and the
-    NEE/MIS estimator's isotropic branch (media under 'mis')."""
+    """The sub-slices that used to raise here are ported: SAH-clustered
+    quads (32 or more) and the NEE/MIS estimator's isotropic branch (media
+    and isotropic materials under 'mis') are now eligible, and the JAX
+    package takes each into its kernels too.  (Image-textured media still
+    raise: test_torch_quad_mis.py.)"""
     jscene, integ = _unported_scene(case)
     scene = scene_from_numpy(_jax_fields(jscene))
-    with pytest.raises(NotImplementedError, match=sub_slice.replace(
-            "(", r"\(").replace(")", r"\)")):
-        megakernel_eligible(scene, integ)
+    assert megakernel_eligible(scene, integ)
+    # the media cases carry the isotropic material, the quad case 32 quads
+    assert (4 in np.asarray(jscene.mat_kind)) == (sub_slice == "K2(c) media")
+    assert int(np.asarray(jscene.quad_mask).sum()) >= (
+        32 if case == "quads_32" else 0)
 
 
 def test_catalog_ports_book1_and_names_the_rest():

@@ -14,11 +14,13 @@ torch = pytest.importorskip("torch")
 # each avoids oversubscription (small tensors gain nothing from more)
 torch.set_num_threads(1)
 
-from rustraytrace_tpu_torch import models  # noqa: E402
+from rustraytrace_tpu_torch import RenderConfig, SceneBuilder, models  # noqa: E402
 from rustraytrace_tpu_torch.config import derive_camera  # noqa: E402
 from rustraytrace_tpu_torch.ops import _cuda, hit  # noqa: E402
 from rustraytrace_tpu_torch.ops import megakernel as mk  # noqa: E402
 from rustraytrace_tpu_torch.ops import wavefront as wf  # noqa: E402
+from torch_scenes import (FIELD_INSIDE_CFG, SMOKE_CFG, quad_field,  # noqa: E402
+                          smoke_mis_scene)
 
 
 @pytest.fixture
@@ -234,3 +236,100 @@ def test_book2_respawn_pass_kernel_matches_plain(cuda, name):
     assert float(plain.sum()) > 0
     assert torch.equal(k3, plain)
     assert torch.equal(k3, k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["book3_cornell_box", "book2_cornell_smoke",
+                                  "book1_three_spheres"])
+def test_mono_pass_kernel_matches_plain_and_k3(cuda, name):
+    """K4 against its plain twin and against K3 on the same tables and
+    seed, bitwise; the counting instance computes the same sums."""
+    scene, cfg, integ = models.get_scene(name, dict(image_width=64))
+    mis = integ == "mis"
+    tables = mk.prepare_megakernel(
+        scene, derive_camera(cfg, "cpu"), width=64, height=cfg.image_height,
+        mis=mis, stratified=cfg.stratified, sqrt_spp=2 if mis else 0,
+        device=cuda)
+    before = _cuda.launch_counts()["mono"]
+    k4 = mk.mono_pass(tables, 9, 4, 4, 50)
+    assert _cuda.launch_counts()["mono"] == before + 1
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=cuda)
+    k4_counted = mk.mono_pass(tables, 9, 4, 4, 50, work=work)
+    plain = mk.mono_pass_plain(tables, 9, 4, 4, 50)
+    k3 = mk.respawn_pass(tables, 9, 4, 4, 50)
+    assert float(plain.sum()) > 0
+    assert torch.equal(k4, plain)
+    assert torch.equal(k4, k3)
+    assert torch.equal(k4, k4_counted)
+    assert int(work[0]) >= tables.n_lanes * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["the_next_week", "book2_earth"])
+def test_segment_launch_matches_plain_step(cuda, name):
+    """One K5 launch against the plain step on a spawned state with every
+    third lane dead, bitwise; then the segment loop == K3, bitwise."""
+    scene, cfg, _ = models.get_scene(name, dict(image_width=96))
+    tables = mk.prepare_megakernel(
+        scene, derive_camera(cfg, "cpu"), width=96, height=cfg.image_height,
+        tile_rows=wf.wavefront_tile_rows(scene), device=cuda)
+    R = tables.n_lanes
+    slot = torch.arange(R, dtype=torch.int64, device=cuda)
+    sample = torch.full((R,), 3, dtype=torch.int64, device=cuda)
+    v = wf.spawn_lanes(tables, slot, sample, wf.seed_key(11))
+    zero = torch.zeros(R, device=cuda)
+    st_k = torch.stack([v.get(k, zero) for k in wf._SEG_NAMES])
+    st_k[wf.R_ALIVE, ::3] = 0.0
+    st_p = st_k.clone()
+    before = _cuda.launch_counts()["segment"]
+    for _ in range(3):
+        wf.segment_step(st_k, sample.to(torch.int32), tables, 11,
+                        max_depth=4)
+        wf.segment_step_plain(st_p, sample.to(torch.int32), tables, 11,
+                              max_depth=4)
+    assert _cuda.launch_counts()["segment"] == before + 3
+    assert torch.equal(st_k, st_p)
+    seg = wf._wavefront_pass_segments(tables, 11, 1, spp=2, max_depth=4)
+    k3 = mk.respawn_pass(tables, 11, 1, 2, 4)
+    assert float(seg.sum()) > 0
+    assert torch.equal(seg, k3)
+
+
+@pytest.mark.cuda
+def test_quad_cluster_kernels_match_plain(cuda):
+    """K2 and K3 under the SAH quad-cluster cull (256 quads, the camera
+    inside the field) against the plain twin, bitwise."""
+    scene = quad_field(SceneBuilder, 256)
+    cfg = RenderConfig(image_width=96, **FIELD_INSIDE_CFG)
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"),
+                                   width=96, height=96, device=cuda)
+    assert tables.n_qclusters > 1
+    k3 = mk.respawn_pass(tables, 5, 0, 4, 8)
+    plain = mk.respawn_pass_plain(tables, 5, 0, 4, 8)
+    assert float(plain.sum()) > 0
+    assert torch.equal(k3, plain)
+    st_k = torch.zeros((wf.N_STATE, tables.n_lanes), device=cuda)
+    st_p = st_k.clone()
+    slot = torch.arange(tables.n_lanes, dtype=torch.int32, device=cuda)
+    kw = dict(persist_iters=6, spp=4, max_depth=8)
+    wf.persist_step(st_k, slot, tables, 5, **kw)
+    wf.persist_step_plain(st_p, slot, tables, 5, **kw)
+    assert torch.equal(st_k, st_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoke", [(0.0, 0.0, 0.0), (0.73, 0.73, 0.73)])
+def test_smoke_mis_kernels_match_plain(cuda, smoke):
+    """The MIS isotropic branch: K3 and K4 on the smoke scene against the
+    plain twin, bitwise."""
+    scene = smoke_mis_scene(SceneBuilder, smoke)
+    cfg = RenderConfig(image_width=64, **SMOKE_CFG)
+    tables = mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"),
+                                   width=64, height=64, mis=True,
+                                   device=cuda)
+    k3 = mk.respawn_pass(tables, 2, 0, 4, 12)
+    k4 = mk.mono_pass(tables, 2, 0, 4, 12)
+    plain = mk.respawn_pass_plain(tables, 2, 0, 4, 12)
+    assert float(plain.sum()) > 0
+    assert torch.equal(k3, plain)
+    assert torch.equal(k4, plain)

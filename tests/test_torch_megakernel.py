@@ -118,6 +118,9 @@ def test_mis_routes_to_the_megakernel_on_cuda(monkeypatch):
 
 
 def test_unsupported_mis_and_quad_scenes_raise():
+    """MIS without NEE lights still raises; 32 or more quads (SAH quad
+    clusters) and isotropic media under MIS are ported and route to the
+    kernels."""
     assert mk.megakernel_mis_eligible(models.book3_cornell_box()[0])
     box, _, _ = models.book2_cornell_box()  # no NEE lights
     with pytest.raises(NotImplementedError, match="1 to 16 NEE lights"):
@@ -125,10 +128,9 @@ def test_unsupported_mis_and_quad_scenes_raise():
     b = SceneBuilder()
     for k in range(mk.QUAD_CLUSTER_MIN):
         b.add_quad((k, 0, 0), (1, 0, 0), (0, 1, 0), b.lambertian((.5,) * 3))
-    with pytest.raises(NotImplementedError, match=r"K2\(c\) quad clusters"):
-        render.resolve_backend(b.build(), "path")
+    assert render.resolve_backend(b.build(), "path", device="cpu") == "plain"
     fog = SceneBuilder()
     fog.add_sphere((0, 0, 0), 1.0, fog.isotropic((.5,) * 3))
     fog.add_light_sphere((0, 5, 0), 1.0)
-    with pytest.raises(NotImplementedError, match=r"K2\(c\) media"):
-        render.resolve_backend(fog.build(), "mis")
+    assert render.resolve_backend(fog.build(), "mis", device="cpu") == (
+        "plain")

@@ -1,0 +1,57 @@
+"""Synthetic scenes of the port's tests and ``chip_smoke.py``, each built
+with a given ``SceneBuilder`` class, so that the JAX package's builder and
+the port's build the same scene: a field of random quads (the JAX
+package's tests/test_quad_cluster.py ``_quad_field``) and its volumetric
+MIS scene (tests/test_round4_tpu.py ``_smoke_mis_scene``), with their
+camera settings.  Imports numpy only."""
+
+import numpy as np
+
+
+def quad_field(builder_cls, n=64, seed=2):
+    """n random quads scattered in a 40-cube (tests/test_quad_cluster.py
+    _quad_field), built with ``builder_cls``."""
+    rng = np.random.default_rng(seed)
+    b = builder_cls()
+    for k in range(n):
+        q = rng.uniform(-20, 20, 3)
+        u = rng.normal(size=3)
+        u = u / np.linalg.norm(u) * rng.uniform(1.0, 3.0)
+        v = np.cross(u, rng.normal(size=3))
+        v = v / np.linalg.norm(v) * rng.uniform(1.0, 3.0)
+        b.add_quad(tuple(q), tuple(u), tuple(v),
+                   b.lambertian((0.5 + 0.5 * (k % 2), 0.4, 0.3)))
+    return b.build()
+
+
+def smoke_mis_scene(builder_cls, smoke=(0.0, 0.0, 0.0)):
+    """The JAX package's volumetric MIS scene (tests/test_round4_tpu.py
+    _smoke_mis_scene): a Cornell box, a smoke box of density 0.01 and
+    albedo ``smoke`` (black there), a glass sphere and one NEE light quad,
+    built with ``builder_cls``."""
+    b = builder_cls()
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light((15.0, 15.0, 15.0))
+    b.add_quad((555, 0, 0), (0, 0, 555), (0, 555, 0), green)
+    b.add_quad((0, 0, 555), (0, 0, -555), (0, 555, 0), red)
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555), white)
+    b.add_quad((0, 0, 555), (555, 0, 0), (0, 0, -555), white)
+    b.add_quad((555, 0, 555), (-555, 0, 0), (0, 555, 0), white)
+    b.add_quad((213, 554, 227), (130, 0, 0), (0, 0, 105), light)
+    b.add_medium_box((0, 0, 0), (165, 330, 165), 0.01,
+                     b.isotropic(smoke), rotate_y_deg=15.0,
+                     translate=(265, 0, 295))
+    b.add_sphere((190, 90, 190), 90.0, b.dielectric(1.5))
+    b.add_light_quad((343, 554, 332), (-130, 0, 0), (0, 0, -105))
+    return b.build()
+
+
+SMOKE_CFG = dict(aspect_ratio=1.0, background=(0.0, 0.0, 0.0), vfov=40.0,
+                 lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0))
+FIELD_CFG = dict(aspect_ratio=1.0, vfov=60.0, lookfrom=(0, 0, 60),
+                 lookat=(0, 0, 0), focus_dist=10.0)
+# inside the field, the case pallas_megakernel.py:201-205 measured
+FIELD_INSIDE_CFG = dict(aspect_ratio=1.0, vfov=60.0, lookfrom=(0, 0, 0),
+                        lookat=(0, 0, -20), focus_dist=10.0)
