@@ -22,9 +22,15 @@ numbers behind PERF.md's findings:
    ``scripts/bench_persist.py`` (``render_pass_wavefront`` end to end,
    persist, segments, segments, persist; one profiled segment pass), and
    K3 on 1,024 quads with the quad-cluster cull against the scan of every
-   quad row.
+   quad row;
+8. the reference routes (``--reference`` runs only this item): the
+   flagship at 16 spp, depth 50, through ``render_image(backend=
+   "sphere_kernel")`` (one pass, one chunk; K1 every bounce) and the
+   Book-3 Cornell box at 16 spp (4x4 strata) through ``backend=
+   "reference"``: warm wall over ``--reps`` reps, then one profiled call
+   each (device time by kernel, K1's share, the idle share).
 
-    python3 chip_measure.py [--reps 3] [--spp 1024] [--heads]
+    python3 chip_measure.py [--reps 3] [--spp 1024] [--heads] [--reference]
     python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
@@ -274,6 +280,39 @@ def _profiled(label: str, fn) -> None:
         print(f"  {ms:10.2f} ms  x {e.count:4d}  {e.key[:100]}")
 
 
+def _reference_routes(reps: int) -> None:
+    """Item 8: the sphere_kernel flagship and the reference Cornell box,
+    warm walls and one profiled call each."""
+    import torch
+
+    from rustraytrace_tpu_torch import models, render
+
+    dev = torch.device("cuda")
+    flag, fcfg, _ = models.book1_random_spheres(dict(
+        image_width=1200, samples_per_pixel=16, max_depth=50))
+    box, bcfg, integ = models.book3_cornell_box(dict(samples_per_pixel=16))
+    cases = (("sphere_kernel flagship 1200x675 16 spp d50",
+              lambda: render.render_image(flag, fcfg, backend="sphere_kernel",
+                                          chunk=1 << 20, device=dev),
+              1200 * 675 * 16),
+             ("reference Book-3 Cornell box 600x600 16 spp d50 MIS",
+              lambda: render.render_image(box, bcfg, integrator=integ,
+                                          backend="reference", chunk=131072,
+                                          device=dev),
+              600 * 600 * 16))
+    for label, fn, paths in cases:
+        fn()  # warm-up
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"{label}: {wall:.4f} s {paths / wall / 1e6:.3f} Mpaths/s",
+                  flush=True)
+        _profiled(label, fn)
+
+
 def _ab(parent: str, reps: int) -> int:
     """Run _ab_child with the package of ``parent`` and of this checkout,
     in turns (parent, change, change, parent), one process each."""
@@ -304,6 +343,8 @@ def main() -> int:
     ap.add_argument("--ab", metavar="DIR")
     ap.add_argument("--heads", action="store_true",
                     help="run item 7 only")
+    ap.add_argument("--reference", action="store_true",
+                    help="run item 8 only")
     ap.add_argument("--ab-child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -326,6 +367,9 @@ def main() -> int:
         return _ab(args.ab, args.reps)
     if args.heads:
         _heads(args.reps)
+        return 0
+    if args.reference:
+        _reference_routes(args.reps)
         return 0
     dev = torch.device("cuda")
     spp, depth = args.spp, 50

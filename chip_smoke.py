@@ -16,6 +16,10 @@ paths on the card:
   monolithic megakernel K4 (``respawn=False``, the JAX default);
 * the final scene again through ``render_pass_wavefront`` with
   ``per_bounce_segments=True`` on the per-bounce segment kernel K5;
+* the flagship at 16 spp through ``render.render_image`` on the
+  sphere_kernel route, whose closest hit is K1 at every bounce;
+* the spike script ``rustraytrace_tpu_torch.scripts.spike_dense_mxu`` on
+  S1's two kernels;
 
 then the other routes, each also held bitwise against the plain twin at
 its full lane count.  Phases: 1 env, 2 build (registers of every kernel
@@ -28,14 +32,21 @@ config, and a MIS scene with the Book-2 features; 10 K4 (the Book-3 path,
 == K3 bitwise at full configuration, == its twin, the Cornell smoke); 11
 K5 (the final-scene path, == the persist render bitwise, one launch vs the
 twin at full lanes, earth); 12 SAH quad clusters (1,024 quads, camera
-inside); 13 the MIS isotropic branch (the smoke scene).  The plain twins run at
-reduced spp on the card (the line of each comparison states its size).
+inside); 13 the MIS isotropic branch (the smoke scene); 14 the sphere_kernel
+route (the reference ``trace_path`` with K1 every bounce: the flagship at 16
+spp, == the route with K1's twin, vs the reference route, BASELINE config 1,
+earth); 15 the reference route (the Book-3 Cornell box vs K3, and the
+scenes the kernels do not cover, on 'auto'); 16 S1, the dense spike's
+tensor-core and scalar kernels (the port's spike script, then each kernel
+against its twin at the spike's shape and at 2^20 rays).  The plain twins
+run at reduced spp on the card (the line of each comparison states its
+size).
 
     python3 chip_smoke.py
 
 Each phase prints one line; any failure exits non-zero.  The last lines are
 the card's name and power limit (as ``nvidia-smi`` prints them), a JSON line
-with the kernels' agreement, launch counts, times and bounds, and
+with every kernel's agreement, launch counts, times and bounds, and
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.  Imports nothing of JAX.
 """
@@ -102,7 +113,12 @@ FLAGSHIP_SPP = 1024  # one pass, as the JAX package's bench.py runs it
 PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 OPS = dict(sphere=30, box=25, quad=61, path_bounce=231, mis_bounce=317,
            light_pick=5, light_sample=(15, 76), light_pdf=(68, 50),
-           box_row=30, medium=45, noise=134, texel=27)
+           box_row=30, medium=45, noise=134, texel=27,
+           # S1 per (ray, sphere) pair (csrc/dense_hit.cu): the dense
+           # epilogue after the two products, and the scalar loop's test
+           dense_pair=22, scalar_pair=32)
+# S1's products on the tensor cores: 495 TFLOP/s dense TF32 (H100 SXM)
+PEAK_TF32 = 495e12
 
 
 def _bound(ops: float, nbytes: float):
@@ -209,10 +225,13 @@ def _registers(log: str) -> dict:
             mangled = ln.split("'")[1]
             base = next((k for k in ("persist_kernel", "respawn_kernel",
                                      "mono_kernel", "segment_kernel",
-                                     "sphere_hit_kernel") if k in mangled),
+                                     "sphere_hit_kernel", "dense_hit_kernel",
+                                     "scalar_hit_kernel") if k in mangled),
                         mangled)
             # template flags: "ILb0ELb1ELb0E" -> [False, True, False]
             flags = [f == "1" for f in re.findall(r"Lb([01])E", mangled)]
+            if len(flags) == 1:  # dense_hit_kernel<HIGHEST>
+                base += "<highest>" if flags[0] else "<default>"
             if len(flags) == 2:  # segment_kernel<BOOK2, COUNT>
                 flags = [False] + flags
             if len(flags) == 3:  # <MIS, BOOK2, COUNT>
@@ -810,6 +829,356 @@ def _phase13(dev) -> float:
     return max(errs)
 
 
+def _phase14(dev) -> dict:
+    """The sphere_kernel route (the reference ``trace_path`` with K1 as its
+    closest-hit step every bounce): the flagship at 1200x675, depth 50,
+    one pass of 16 spp in one chunk through ``render_image``, K1 launched
+    passes x 50 x chunks times; the same route with K1's twin at 2 spp,
+    bitwise; against the reference route at 4 spp within 5 standard
+    errors; K1 at the main path's first-bounce rays; BASELINE config 1 and
+    ``book2_earth`` on the route.  Returns the numbers of K1's entry."""
+    import torch
+
+    from rustraytrace_tpu_torch import models, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, hit
+
+    scene, cfg, _ = models.book1_random_spheres(dict(
+        image_width=1200, samples_per_pixel=16, max_depth=50))
+    w, h, spp, seed = cfg.image_width, cfg.image_height, 16, cfg.seed
+    chunk = 1 << 20  # one chunk per image
+    per = render.effective_spp_per_pass(cfg, spp, w * h, "sphere_kernel")
+    passes = -(-spp // per)
+    chunks = -(-(w * h) // min(chunk, -(-(w * h) // 256) * 256))
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, st = render.render_image(scene, cfg, backend="sphere_kernel",
+                                  chunk=chunk, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    acc = st["accum"] / st["spp_done"]
+    want = passes * cfg.max_depth * chunks
+    print(f"[14 sphere_kernel flagship] {w}x{h} {spp} spp depth 50 through "
+          f"render_image(backend='sphere_kernel'), {passes} pass, {chunks} "
+          f"chunk: {wall:.3f} s, {w * h * spp / wall:.6g} paths/s; kernel "
+          f"launch counts {counts} (K1 expected {want})", flush=True)
+    _check(counts["sphere_hit"] == want > 0
+           and sum(counts.values()) == counts["sphere_hit"],
+           "the sphere_kernel flagship did not launch K1 passes x depth x "
+           "chunks times alone")
+    _check(img.shape == (h, w, 3) and bool(np.isfinite(acc).all())
+           and acc.mean() > 0.1, "the sphere_kernel flagship image")
+
+    cam = derive_camera(cfg, device=dev)
+    kw = dict(width=w, height=h, max_depth=50, chunk=chunk, device=dev)
+    k2 = render.render_pass(scene, cam, seed, spp=2,
+                            backend="sphere_kernel", **kw)
+    p2 = render._render_pass_reference(scene, cam, seed, spp=2,
+                                       backend="sphere_kernel",
+                                       hit_fn=hit.sphere_hit_plain, **kw)
+    eq2 = bool(torch.equal(k2, p2))
+    err2 = torch.abs(k2 - p2).max().item()
+    # another seed: the two routes share their draws, and the block test
+    # needs independent renders.  The reference route refines every sphere
+    # root with a Newton step (as the JAX package's XLA route does), the
+    # sphere_kernel route keeps K1's direct-form root (as its Pallas route
+    # does), which leaves rays from the r = 1000 ground a few more
+    # self-hits (tests/test_torch_sphere_kernel.py); so the block test is
+    # held against the kernel route K2, which shares K1's quadric, and the
+    # reference route against the channel means.
+    t0 = time.perf_counter()
+    ref4 = render.render_pass(scene, cam, seed + 1, spp=4,
+                              backend="reference",
+                              **dict(kw, chunk=65536)).cpu().numpy()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ch, z = _agreement(acc, ref4 / 4.0)
+    k2 = render.render_pass(scene, cam, seed + 1, width=w, height=h, spp=spp,
+                            max_depth=50, device=dev).cpu().numpy()
+    ch_k2, z_k2 = _agreement(acc, k2 / spp)
+    print(f"[14 sphere_kernel check] 2 spp with K1 vs with its twin: max "
+          f"|diff| {err2:.3g}, image bitwise equal (required): {eq2}; "
+          f"{spp} spp vs the kernel route (K2) at {spp} spp, another seed: "
+          f"channel mean |diff| {ch_k2:.4g}, 4x4 block max |z| {z_k2:.3f} "
+          f"(need < 5); vs the reference route at 4 spp, another seed "
+          f"({ref_s:.3f} s): channel mean |diff| {ch:.4g} (need < 0.01), "
+          f"4x4 block max |z| {z:.3f}", flush=True)
+    _check(eq2 and z_k2 < 5.0 and ch < 0.01, "the sphere_kernel route "
+           "differs from its twin, from K2 or from the reference route")
+
+    # K1 at the main path's shape: the first bounce's rays of the pass
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return hit.sphere_hit(*args)
+
+    render._render_pass_reference(scene, cam, seed, spp=spp,
+                                  backend="sphere_kernel", hit_fn=record,
+                                  **dict(kw, max_depth=1))
+    args = seen[0]
+    n_rays, n_sph = args[0].shape[0], args[3].shape[0]
+    ms = _cuda_ms(lambda: hit.sphere_hit(*args), 5)
+    (tp, ip), plain_ms = _cuda_ms_once(lambda: hit.sphere_hit_plain(*args))
+    tk, ik = hit.sphere_hit(*args)
+    eq1 = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
+    # every ray tests every sphere; 7 f32 in and 2 words out a ray
+    bound, by = _bound(n_rays * (n_sph * OPS["sphere"] + 6), n_rays * 9 * 4)
+    print(f"[14 K1 at the main path's shape] {n_rays} first-bounce rays x "
+          f"{n_sph} spheres: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {bound:.3f} ms ({by}); t and idx bitwise equal "
+          f"(required): {eq1}", flush=True)
+    _check(eq1, "K1 disagrees with its twin at the main path's shape")
+
+    # BASELINE config 1 in full, and the image-texture case
+    s1, c1, _ = models.book1_three_spheres()
+    _check((c1.image_width, c1.image_height, c1.samples_per_pixel,
+            c1.max_depth) == (400, 225, 100, 50), "BASELINE config 1")
+    walls = {}
+    for name, sc, cf in (("book1_three_spheres", s1, c1),
+                         ("book2_earth",) + models.book2_earth(dict(
+                             image_width=800, samples_per_pixel=16))[:2]):
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, sst = render.render_image(sc, cf, backend="sphere_kernel",
+                                     chunk=chunk, device=dev)
+        torch.cuda.synchronize()
+        wl = time.perf_counter() - t0
+        cnt = _cuda.launch_counts()
+        sp = sst["spp_done"]
+        npass = -(-sp // render.effective_spp_per_pass(
+            cf, sp, cf.image_width * cf.image_height, "sphere_kernel"))
+        sacc = sst["accum"] / sp
+        walls[name] = wl
+        print(f"[14 {name}] {cf.image_width}x{cf.image_height} {sp} spp "
+              f"depth {cf.max_depth} on the sphere_kernel route: {wl:.3f} s, "
+              f"{cf.image_width * cf.image_height * sp / wl:.6g} paths/s, "
+              f"{npass} passes; launch counts {cnt}; channel means "
+              f"{np.round(sacc.mean(axis=(0, 1)), 5).tolist()}", flush=True)
+        _check(cnt["sphere_hit"] == npass * cf.max_depth
+               and bool(np.isfinite(sacc).all()) and sacc.mean() > 0.05,
+               f"{name} on the sphere_kernel route")
+    return dict(launches=counts["sphere_hit"], err=err2, ms=ms,
+                plain_ms=plain_ms, bound=bound, by=by, n_rays=n_rays,
+                n_sph=n_sph, wall=wall, paths_per_s=w * h * spp / wall,
+                walls=walls)
+
+
+def _phase15(dev) -> dict:
+    """The reference route: the Book-3 Cornell box at 600x600, 16 spp (4x4
+    strata), depth 50, MIS through ``render_image(backend='reference')``
+    against K3's ``render_image`` at the same configuration (channel means
+    within 0.01, the 4x4 block z printed); the two scenes the kernels do
+    not cover on 'auto'."""
+    import torch
+
+    from rustraytrace_tpu_torch import RenderConfig, SceneBuilder, models
+    from rustraytrace_tpu_torch import render
+    from rustraytrace_tpu_torch.ops import _cuda
+
+    s, c, integ = models.book3_cornell_box(dict(samples_per_pixel=16))
+    _check((c.image_width, c.image_height, c.max_depth, c.stratified, integ)
+           == (600, 600, 50, True, "mis"), "the Book-3 configuration")
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = render.render_image(s, c, integrator=integ, backend="reference",
+                                chunk=131072, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    _, st3 = render.render_image(s, c, integrator=integ, device=dev)
+    ch, z = _agreement(st["accum"] / 16.0, st3["accum"] / 16.0)
+    # the reference route's expanded quadric (the JAX package's XLA
+    # route) leaves rays from the glass sphere more self-hits than K3's
+    # direct form (tests/test_torch_sphere_kernel.py), so the block z is
+    # reported and the channel means are held
+    print(f"[15 reference book3_cornell_box] 600x600 16 spp (4x4 strata) "
+          f"depth 50 MIS through render_image(backend='reference'): "
+          f"{wall:.3f} s, {600 * 600 * 16 / wall:.6g} paths/s; launch counts "
+          f"{counts}; vs K3's render_image at 16 spp: channel mean |diff| "
+          f"{ch:.4g} (need < 0.01), 4x4 block max |z| {z:.3f}", flush=True)
+    _check(sum(counts.values()) == 0 and ch < 0.01
+           and bool(np.isfinite(st["accum"]).all()),
+           "the reference route's Cornell box")
+
+    ts = _torch_scenes()
+    med = ts.image_medium_scene(SceneBuilder)
+    cm = RenderConfig(image_width=200, samples_per_pixel=16, max_depth=20,
+                      **ts.IMAGE_MEDIUM_CFG)
+    box, cb, _ = models.book2_cornell_box(dict(
+        image_width=200, samples_per_pixel=16, max_depth=20))
+    for name, sc, cf, ig in (("image-textured medium", med, cm, "path"),
+                             ("book2_cornell_box, mis, no NEE light", box,
+                              cb, "mis")):
+        route = render.resolve_backend(sc, ig, device=dev)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, sst = render.render_image(sc, cf, integrator=ig, device=dev)
+        torch.cuda.synchronize()
+        wl = time.perf_counter() - t0
+        cnt = _cuda.launch_counts()
+        sacc = sst["accum"] / sst["spp_done"]
+        print(f"[15 auto: {name}] {cf.image_width}x{cf.image_height} "
+              f"{sst['spp_done']} spp depth {cf.max_depth}: route {route!r}, "
+              f"{wl:.3f} s; launch counts {cnt}; channel means "
+              f"{np.round(sacc.mean(axis=(0, 1)), 5).tolist()}", flush=True)
+        _check(route == ("sphere_kernel" if ig == "path" else "reference")
+               and bool(np.isfinite(sacc).all()) and sacc.mean() > 0.0
+               and (cnt["sphere_hit"] > 0) == (ig == "path"),
+               f"the {name} did not route and render as the JAX package")
+    return dict(wall=wall, paths_per_s=600 * 600 * 16 / wall)
+
+
+def _dense_exact(dtab, rays):
+    """S1's closest hit with the two products exactly rounded (float64,
+    rounded once to float32) and the dense epilogue: the least any float32
+    product can differ from the twin's, for comparison."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    ox, oy, oz, dx, dy, dz = rays
+    ct = dtab[0:4].t().double()
+    bt, bi = [], []
+    for lo in range(0, ox.numel(), 65536):
+        x, y, z, a_, b_, c_ = (r[lo:lo + 65536] for r in rays)
+        D = torch.stack([a_, b_, c_, torch.zeros_like(a_)]).double()
+        O = torch.stack([x, y, z, -torch.ones_like(x)]).double()
+        dC, m = (ct @ D).float(), (ct @ O).float()
+        a = a_ * a_ + b_ * b_ + c_ * c_
+        inv_a = 1.0 / a
+        hh = dC - (a_ * x + b_ * y + c_ * z)
+        disc = hh * hh - a * ((x * x + y * y + z * z) - 2.0 * m)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        tn, tf = (hh - sq) * inv_a, (hh + sq) * inv_a
+        root = torch.where((tn > dh.T_MIN) & (tn < dh.T_MAX), tn, tf)
+        take = (disc > 0.0) & (root > dh.T_MIN) & (root < dh.T_MAX)
+        best, idx = torch.min(torch.where(take, root, dh.BIG), dim=0)
+        bt.append(best)
+        bi.append(torch.where(best < dh.BIG, idx, -1))
+    return torch.cat(bt), torch.cat(bi).to(torch.int32)
+
+
+def _phase16(dev) -> dict:
+    """S1: the port's spike script (both precisions), then both kernels
+    against their twins at the spike's shape (1,024 spheres, 4,096 rays,
+    200 iterations) and at 2^20 rays x 1,024 spheres x 1 iteration:
+    scalar bitwise; dense 'highest' winner and hit mask on >= 99.9% of
+    rays and |dt| <= 1e-2 (every ray at the spike's shape, >= 99.9% at
+    2^20, where exactly rounded products differ from the twin by more on
+    near-tangent rays; their max is printed beside).  Returns the numbers
+    of the two entries."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rustraytrace_tpu_torch.ops import _cuda, dense_hit as dh
+    from rustraytrace_tpu_torch.scripts import spike_dense_mxu as spike
+
+    launches = {}
+    for prec in ("highest", "default"):
+        _cuda.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            spike.main(["1024", "200", "--precision", prec])
+        torch.cuda.synchronize()
+        cnt = _cuda.launch_counts()
+        launches[prec] = cnt
+        print(f"[16 spike script, {prec}] "
+              + " | ".join(out.getvalue().splitlines())
+              + f"; launch counts {cnt}", flush=True)
+        _check(cnt["dense_hit"] > 0 and cnt["scalar_hit"] > 0,
+               "the spike script did not launch both kernels")
+
+    res = {}
+    for label, ns, n_rays, iters in (("spike", 1024, 4096, 200),
+                                     ("2^20", 1024, 1 << 20, 1)):
+        dtab_np, stab_np, o, d = spike.spike_inputs(ns)
+        if n_rays != o[0].size:
+            rng = np.random.default_rng(1)
+            o = rng.uniform(-100, 100, (3, n_rays)).astype(np.float32)
+            d = rng.normal(size=(3, n_rays)).astype(np.float32)
+        rays = [torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(dev)
+                for x in (*o, *d)]
+        dtab = torch.from_numpy(dtab_np).to(dev)
+        stab = torch.from_numpy(stab_np).to(dev)
+        ts_k, is_k = dh.scalar_hit(stab, *rays, iters=iters)
+        ts_p, is_p = dh.scalar_hit_plain(stab, *rays)
+        s_plain = _cuda_ms(lambda: dh.scalar_hit_plain(stab, *rays), 1)
+        s_eq = bool(torch.equal(ts_k, ts_p) and torch.equal(is_k, is_p))
+        s_ms = _cuda_ms(lambda: dh.scalar_hit(stab, *rays, iters=iters), 3)
+        pairs = n_rays * ns * iters
+        row = dict(s_eq=s_eq, s_ms=s_ms, s_plain=s_plain, pairs=pairs,
+                   s_err=torch.abs(ts_k - ts_p).max().item())
+        for prec in ("highest", "default"):
+            td, id_ = dh.dense_hit(dtab, *rays, iters=iters, precision=prec)
+            tp, ip = dh.dense_hit_plain(dtab, *rays, precision=prec)
+            d_plain = _cuda_ms(
+                lambda: dh.dense_hit_plain(dtab, *rays, precision=prec), 1)
+            d_ms = _cuda_ms(lambda: dh.dense_hit(dtab, *rays, iters=iters,
+                                                 precision=prec), 3)
+            both = (id_ >= 0) & (ip >= 0)
+            dt = torch.abs(td - tp)[both]
+            mask = ((id_ >= 0) == (ip >= 0)).float().mean().item()
+            idx = (id_ == ip).float().mean().item()
+            within = (dt <= 1e-2).float().mean().item()
+            hit_d, hit_s = id_ >= 0, is_k >= 0
+            vs_scalar = (((hit_d == hit_s).float().mean().item()),
+                         (id_ == is_k)[hit_d & hit_s].float().mean().item(),
+                         torch.abs(td - ts_k)[hit_d & hit_s].max().item())
+            row[prec] = dict(ms=d_ms, plain=d_plain, mask=mask, idx=idx,
+                             dt_max=dt.max().item(), within=within,
+                             vs_scalar=vs_scalar)
+        te, ie = _dense_exact(dtab, rays)
+        tp_h, ip_h = dh.dense_hit_plain(dtab, *rays)
+        both = (ie >= 0) & (ip_h >= 0)
+        floor = torch.abs(te - tp_h)[both].max().item()
+        mma = pairs * 2 * 4 * 2 * 3  # two K=4 products, 3 TF32 passes
+        t_mma = 1e3 * mma / PEAK_TF32
+        # table and rays read once, t and idx written once; the FP32
+        # epilogue and the tensor-core products can overlap, so the bound
+        # is the largest of the three times
+        d_bound, d_by = _bound(pairs * OPS["dense_pair"],
+                               4 * (8 * ns + 8 * n_rays))
+        if t_mma > d_bound:
+            d_bound, d_by = t_mma, "operations"
+        s_bound, s_by = _bound(pairs * OPS["scalar_pair"],
+                               4 * (4 * ns + 8 * n_rays))
+        row.update(floor=floor, d_bound=d_bound, d_by=d_by, t_mma=t_mma,
+                   s_bound=s_bound, s_by=s_by)
+        hi = row["highest"]
+        for prec in ("highest", "default"):
+            r = row[prec]
+            print(f"[16 S1 {label}, {prec}] {n_rays} rays x {ns} spheres x "
+                  f"{iters} iterations: dense vs its twin: hit mask "
+                  f"{r['mask']:.6f}, winner {r['idx']:.6f}, |dt| <= 1e-2 on "
+                  f"{r['within']:.6f} (max {r['dt_max']:.3e}; exactly rounded "
+                  f"products vs the twin: {floor:.3e}); dense vs scalar: "
+                  f"hit-mask agreement {r['vs_scalar'][0]:.6f}, winner-idx "
+                  f"agreement {r['vs_scalar'][1]:.6f}, |t| max delta "
+                  f"{r['vs_scalar'][2]:.3e}; dense {r['ms']:.3f} ms = "
+                  f"{pairs / r['ms'] / 1e6:.1f} Gpairs/s (twin, one scan, "
+                  f"{r['plain']:.1f} ms)", flush=True)
+        print(f"[16 S1 {label}, scalar] kernel {s_ms:.3f} ms = "
+              f"{pairs / s_ms / 1e6:.1f} Gpairs/s, twin (one scan) "
+              f"{row['s_plain']:.1f} ms; bitwise equal to the twin "
+              f"(required): {s_eq}; bounds: dense {d_bound:.4f} ms "
+              f"({d_by}; tensor cores alone {t_mma:.4f} ms), scalar "
+              f"{s_bound:.4f} ms ({s_by})", flush=True)
+        _check(s_eq, f"S1 scalar differs from its twin ({label})")
+        _check(hi["mask"] >= 0.999 and hi["idx"] >= 0.999
+               and (hi["dt_max"] <= 1e-2 if label == "spike"
+                    else hi["within"] >= 0.999),
+               f"S1 dense 'highest' disagrees with its twin ({label})")
+        res[label] = row
+    return dict(res=res, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -860,14 +1229,6 @@ def main() -> int:
           f"{k1_plain_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})",
           flush=True)
     _check(k1_equal, "K1 disagrees with plain")
-    k1_entry = dict(name="sphere_hit", route="cuda",
-                    source="rustraytrace_tpu_torch/csrc/sphere_hit.cu",
-                    replaces="rustraytrace_tpu/ops/pallas_hit.py:164",
-                    launches=0, max_abs_err=k1_err, ms=k1_ms,
-                    plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-                    library_ms=None,
-                    ms_shape=f"2^20 rays x {sph.shape[0]} spheres",
-                    plain_ms_shape=f"2^20 rays x {sph.shape[0]} spheres")
 
     # ---- 4: one bounded persist launch, kernel vs plain
     s4, c4, _ = models.book1_random_spheres(dict(image_width=160))
@@ -1160,11 +1521,31 @@ def main() -> int:
     r11 = _phase11(dev, r9)
     r12 = _phase12(dev)
     err13 = _phase13(dev)
+    r14 = _phase14(dev)
+    r15 = _phase15(dev)
+    r16 = _phase16(dev)
+    s1 = r16["res"]
 
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
                "flagship_4k": err4k, "field_1500": errS,
                "quad_field_1024": r12["err"], "smoke_mis": err13}
-    kernels = [dict(name="persist", route="cuda",
+    kernels = [dict(name="sphere_hit", route="cuda",
+                    source="rustraytrace_tpu_torch/csrc/sphere_hit.cu",
+                    replaces="rustraytrace_tpu/ops/pallas_hit.py:164",
+                    launches=r14["launches"],
+                    launches_by_path={"flagship, sphere_kernel route":
+                                      r14["launches"]},
+                    max_abs_err=max(k1_err, r14["err"]), ms=r14["ms"],
+                    plain_ms=r14["plain_ms"], bound_ms=r14["bound"],
+                    bound_by=r14["by"], library_ms=None,
+                    ms_shape=f"{r14['n_rays']} first-bounce rays x "
+                             f"{r14['n_sph']} spheres, flagship 16 spp",
+                    plain_ms_shape=f"{r14['n_rays']} first-bounce rays x "
+                                   f"{r14['n_sph']} spheres",
+                    random_rays_ms=k1_ms, random_rays_plain_ms=k1_plain_ms,
+                    random_rays_bound_ms=k1_bound,
+                    random_rays_shape=f"2^20 rays x {sph.shape[0]} spheres"),
+               dict(name="persist", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/persist.cu",
                     replaces="rustraytrace_tpu/ops/pallas_wavefront.py:382",
                     launches=r9["k2_launches"],
@@ -1235,9 +1616,39 @@ def main() -> int:
                     plain_ms_shape=f"{r11['R']} lanes, one bounce, "
                                    "the_next_week",
                     path_seconds=r11["wall"], segments=r11["segments"])]
+    for name, key, src in (("dense_hit", "highest", 28),
+                           ("scalar_hit", None, 111)):
+        sp, big = s1["spike"], s1["2^20"]
+        row = dict(name=name, route="cuda",
+                   source="rustraytrace_tpu_torch/csrc/dense_hit.cu",
+                   replaces=f"scripts/spike_dense_mxu.py:{src}",
+                   launches=r16["launches"]["highest"][name],
+                   launches_by_path={
+                       f"spike script, {p}": r16["launches"][p][name]
+                       for p in ("highest", "default")},
+                   library_ms=None,
+                   ms_shape="4096 rays x 1024 spheres x 200 iterations",
+                   plain_ms_shape="4096 rays x 1024 spheres, one scan")
+        if key:
+            row.update(max_abs_err=sp[key]["dt_max"], ms=sp[key]["ms"],
+                       plain_ms=sp[key]["plain"], bound_ms=sp["d_bound"],
+                       bound_by=sp["d_by"],
+                       tensor_core_ms_bound=sp["t_mma"],
+                       default_ms=sp["default"]["ms"],
+                       ms_2p20=big[key]["ms"],
+                       plain_ms_2p20=big[key]["plain"],
+                       bound_ms_2p20=big["d_bound"],
+                       max_abs_err_2p20=big[key]["dt_max"],
+                       exact_products_max_abs_err_2p20=big["floor"])
+        else:
+            row.update(max_abs_err=max(sp["s_err"], big["s_err"]),
+                       ms=sp["s_ms"], plain_ms=sp["s_plain"],
+                       bound_ms=sp["s_bound"], bound_by=sp["s_by"],
+                       ms_2p20=big["s_ms"], plain_ms_2p20=big["s_plain"],
+                       bound_ms_2p20=big["s_bound"])
+        kernels.append(row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
           f"started", flush=True)
-    print(json.dumps({"off_path_kernels": [k1_entry]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,13 @@ catalog, the SAH clustering and table packing, the closest-hit kernel K1
 with its between-launch ray sort and per-tile launch bounds, the respawn
 megakernel K3 (``csrc/megakernel.cu``), their shared device code for
 spheres, boxes, quads, constant media and textures (``csrc/path.cuh``),
-and the render pass loop.  The entry points run on the card
+the monolithic megakernel K4 (``csrc/mono.cu``) and the per-bounce segment
+kernel K5 (``csrc/segment.cu``), the render pass loop, the reference
+integrators (``camera.py``, ``ops/intersect.py``, ``ops/materials.py``,
+``ops/textures.py``, ``ops/perlin.py``, ``ops/integrator.py``) behind the
+``"reference"`` and ``"sphere_kernel"`` backends (the latter with K1 as its
+closest hit), and S1, the dense closest-sphere spike's two kernels
+(``csrc/dense_hit.cu``).  The entry points run on the card
 (``device="cuda"``) unless the caller asks for ``device="cpu"``.
 """
 

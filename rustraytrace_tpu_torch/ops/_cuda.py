@@ -87,6 +87,12 @@ KERNELS = {
     "mono": Kernel("rtt_mono_pass", (_P, _I, _P, _I, _I, _P)),
     # state, sample, R, &PathParams, book2, stream
     "segment": Kernel("rtt_segment_step", (_P, _P, _I, _P, _I, _P)),
+    # dtab, NS, ox, oy, oz, dx, dy, dz, iters, highest, bt, bi, R, stream
+    "dense_hit": Kernel("rtt_dense_hit", (
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P)),
+    # tab, NS, ox, oy, oz, dx, dy, dz, iters, bt, bi, R, stream
+    "scalar_hit": Kernel("rtt_scalar_hit", (
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P)),
 }
 
 _lock = threading.Lock()

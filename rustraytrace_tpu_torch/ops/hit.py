@@ -7,9 +7,11 @@ semantics of the JAX kernel (pallas_hit.py:68-159): the half-b quadric with
 ``oc`` subtracted first, the near root unless it is outside (1e-3, 1e9),
 optional motion ``c + time * v``, then quads, with a strict ``<`` in table
 order; quad winners are encoded as ``n_spheres + qi`` and a miss returns
-``(T_MAX, -1)``.  K1 is off the main paths; it is the exact check of the
-sphere quadric and the quad test that the path tracer's kernels share
-(``csrc/rtt_common.cuh``; ``quad_hits`` is the plain twin of the quad test).
+``(T_MAX, -1)``.  K1 is the closest-hit step of the sphere_kernel route
+(``closest_hit_spheres``, every bounce of ``integrator.trace_path``), and
+the exact check of the sphere quadric and the quad test that the path
+tracer's kernels share (``csrc/rtt_common.cuh``; ``quad_hits`` is the
+plain twin of the quad test).
 """
 
 from __future__ import annotations
@@ -190,3 +192,103 @@ def sphere_hit(o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
                  quad_tab.shape[0], int(bool(moving)), t.data_ptr(),
                  idx.data_ptr(), R)
     return t, idx
+
+
+# ---- the sphere_kernel route's closest hit (pallas_hit.py:191-314) ----
+
+
+def sphere_kernel_eligible(scene: Scene) -> bool:
+    """The sphere_kernel route covers spheres and quads in K1 (at most 256
+    quads, the JAX kernel's SMEM table), constant media through
+    ``intersect.hit_media`` and every texture outside the kernel; scenes
+    with box primitives take another route (pallas_hit.py:191-199)."""
+    return ("boxes" not in scene.features
+            and ("quads" not in scene.features
+                 or scene.quad_q.shape[0] <= 256))
+
+
+def sphere_kernel_tables(scene: Scene):
+    """(sphere table [N, 8], quad table [Q, 32]) that K1 reads on the
+    sphere_kernel route; Q is 0 for a scene without quads."""
+    sph = pack_sphere_table(scene)
+    if "quads" in scene.features:
+        return sph, pack_quad_table(scene)
+    return sph, torch.zeros((0, Q_COLS), dtype=torch.float32,
+                            device=sph.device)
+
+
+def closest_hit_spheres(o, d, time, scene: Scene, *, u_media=None,
+                        tables=None, hit_fn=None):
+    """Closest hit and material of rays o, d [R, 3] (time [R]) on the
+    sphere_kernel route (closest_hit_spheres_pallas, pallas_hit.py:
+    202-314): spheres and quads through K1 (``hit_fn``, by default
+    ``sphere_hit``: the kernel on CUDA tensors, its twin on CPU tensors;
+    ``sphere_hit_plain`` runs the twin on any device), constant media
+    composed on top with ``intersect.hit_media`` (``u_media`` [R,
+    n_media]), records and textures assembled from the winner index.
+    ``tables`` are ``sphere_kernel_tables(scene)``, packed here when not
+    given.  Returns (HitRecord, MatRecord)."""
+    from .intersect import HitRecord, hit_media, sphere_uv
+    from .materials import MatRecord
+    from .rng import cross, dot, sqrt
+    from .textures import texture_value
+
+    sph_tab, quad_tab = tables if tables is not None else (
+        sphere_kernel_tables(scene))
+    hit_fn = hit_fn or sphere_hit
+    t, idx = hit_fn(o.contiguous(), d.contiguous(), time.contiguous(),
+                    sph_tab, quad_tab, "motion" in scene.features)
+    S = sph_tab.shape[0]
+    idx = idx.long()
+    hit = idx >= 0
+    is_quad = idx >= S
+    iw = torch.where(hit & ~is_quad, idx, 0)
+    qw = torch.where(is_quad, idx - S, 0)
+    p = o + torch.where(hit, t, 1.0)[:, None] * d
+
+    ctr = scene.sph_center[iw] + time[:, None] * scene.sph_cvel[iw]
+    rad = scene.sph_radius[iw]
+    outward = (p - ctr) / torch.clamp(rad, min=1e-30)[:, None]
+    u, v = sphere_uv(outward)
+    mat_id = scene.sph_mat[iw].long()
+    if quad_tab.shape[0]:
+        qn = cross(scene.quad_u, scene.quad_v)
+        qnn = torch.clamp(dot(qn, qn), min=1e-30)[:, None]
+        rel = p - scene.quad_q[qw]
+        w = (qn / qnn)[qw]
+        uq = dot(w, cross(rel, scene.quad_v[qw]))
+        vq = dot(w, cross(scene.quad_u[qw], rel))
+        outward = torch.where(is_quad[:, None], (qn / sqrt(qnn))[qw],
+                              outward)
+        u = torch.where(is_quad, uq, u)
+        v = torch.where(is_quad, vq, v)
+        mat_id = torch.where(is_quad, scene.quad_mat[qw].long(), mat_id)
+    front = dot(d, outward) < 0.0
+    t_full = torch.where(hit, t, T_MAX)
+
+    if "media" in scene.features:
+        if u_media is None:
+            raise ValueError("a scene with media needs u_media draws")
+        t_min = torch.full_like(t_full, T_MIN)
+        tm, mmat, anym = hit_media(o, d, scene, t_min, t_full, u_media)
+        better = anym & (tm < t_full)
+        t_full = torch.where(better, tm, t_full)
+        hit = hit | better
+        p = torch.where(better[:, None], o + t_full[:, None] * d, p)
+        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=o.dtype,
+                              device=o.device)
+        outward = torch.where(better[:, None], x_axis, outward)
+        front = front | better
+        mat_id = torch.where(better, mmat, mat_id)
+        u = torch.where(better, 0.0, u)
+        v = torch.where(better, 0.0, v)
+
+    normal = torch.where(front[:, None], outward, -outward)
+    rec = HitRecord(valid=hit, t=t_full, p=p, normal=normal,
+                    front_face=front, mat=mat_id, u=u, v=v)
+    mat = MatRecord(
+        kind=scene.mat_kind[mat_id],
+        albedo=texture_value(scene.mat_tex[mat_id], u, v, p, scene),
+        fuzz=scene.mat_fuzz[mat_id],
+        ior=scene.mat_ior[mat_id])
+    return rec, mat

@@ -127,14 +127,15 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def megakernel_eligible(scene: Scene, integrator: str = "path") -> bool:
-    """True when the ported kernels cover the scene: spheres (moving or
+def kernel_gap(scene: Scene, integrator: str = "path"):
+    """None when the ported kernels cover the scene: spheres (moving or
     not), quads (SAH-clustered from QUAD_CLUSTER_MIN), boxes, constant
     media, solid, checker, Perlin-marble and image albedos, sky or flat
     background, the path integrator or (with ``mis_lights_ok``) the NEE/MIS
-    one, isotropic media and materials included.  Image-textured media,
-    which the JAX package renders only on its XLA path, raise
-    ``NotImplementedError``."""
+    one, isotropic media and materials included.  Otherwise what is not
+    covered, as a message: image-textured constant media, which the JAX
+    package renders only on its XLA path, and ``mis`` without 1 to 16 NEE
+    lights.  Decided from the scene's features and tables alone."""
     if integrator not in ("path", "mis"):
         raise ValueError(f"unknown integrator {integrator!r}")
     feats = scene.features
@@ -144,13 +145,21 @@ def megakernel_eligible(scene: Scene, integrator: str = "path") -> bool:
             _np(scene.mbox_mat)[_np(scene.mbox_mask) > 0]])
         if np.any(_np(scene.tex_kind)[_np(scene.mat_tex)[media_mats]]
                   == TEX_IMAGE):
-            raise NotImplementedError(
-                "image-textured constant media run only on the JAX "
-                "package's XLA path, not ported yet")
+            return ("image-textured constant media run only on the "
+                    "reference routes (sphere_kernel, reference), as on the "
+                    "JAX package's XLA path")
     if integrator == "mis" and not mis_lights_ok(scene):
-        raise NotImplementedError(
-            "integrator 'mis' runs in-kernel with 1 to 16 NEE lights; "
-            f"the scene has {int(_np(scene.light_mask).sum())}")
+        return ("integrator 'mis' runs in-kernel with 1 to 16 NEE lights; "
+                f"the scene has {int(_np(scene.light_mask).sum())}")
+    return None
+
+
+def megakernel_eligible(scene: Scene, integrator: str = "path") -> bool:
+    """True when the ported kernels cover the scene (``kernel_gap`` is
+    None); raises ``NotImplementedError`` naming the gap otherwise."""
+    gap = kernel_gap(scene, integrator)
+    if gap is not None:
+        raise NotImplementedError(gap)
     return True
 
 

@@ -16,9 +16,11 @@ torch.set_num_threads(1)
 
 from rustraytrace_tpu import models as jmodels  # noqa: E402
 from rustraytrace_tpu.config import derive_camera as jax_derive_camera  # noqa: E402
-from rustraytrace_tpu_torch import models, scene_from_numpy  # noqa: E402
+from rustraytrace_tpu_torch import RenderConfig, models, scene_from_numpy  # noqa: E402
 from rustraytrace_tpu_torch.config import derive_camera  # noqa: E402
-from rustraytrace_tpu_torch.ops.megakernel import megakernel_eligible  # noqa: E402
+from rustraytrace_tpu_torch.ops.megakernel import (  # noqa: E402
+    megakernel_eligible, render_pass_megakernel)
+from rustraytrace_tpu_torch.ops.wavefront import render_pass_wavefront  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOOK1 = ["book1_three_spheres", "book1_random_spheres"]
@@ -94,6 +96,15 @@ def _unported_scene(case):
         b.add_sphere((0, 0, 0), 1.0, b.isotropic((.5,) * 3))
         b.add_light_sphere((0, 5, 0), 1.0)
         return b.build(), "mis"
+    if case == "image_fog_path":
+        img = np.full((4, 4, 3), 0.5, np.float32)
+        b.add_medium_sphere((0, 0, 0), 1.0, 0.5,
+                            b.isotropic(tex=b.image_texture(img)))
+        b.add_sphere((0, -100, 0), 99.0, b.lambertian((.5,) * 3))
+        return b.build(), "path"
+    if case == "no_lights_mis":
+        b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), b.diffuse_light((4.,) * 3))
+        return b.build(), "mis"
     b.add_medium_box((0, 0, 0), (165, 165, 165), 0.01, b.isotropic((1.,) * 3))
     b.add_quad((0, 0, 0), (1, 0, 0), (0, 1, 0), b.lambertian((.5,) * 3))
     b.add_light_quad((213, 554, 227), (130, 0, 0), (0, 0, 105))
@@ -102,15 +113,37 @@ def _unported_scene(case):
 
 @pytest.mark.parametrize("case,sub_slice", [
     ("quads_32", "K2(c) quad clusters"), ("fog_sphere_mis", "K2(c) media"),
-    ("smoke_box_mis", "K2(c) media")])
+    ("smoke_box_mis", "K2(c) media"), ("image_fog_path", "reference routes"),
+    ("no_lights_mis", "reference routes")])
 def test_unported_features_raise_naming_the_sub_slice(case, sub_slice):
-    """The sub-slices that used to raise here are ported: SAH-clustered
-    quads (32 or more) and the NEE/MIS estimator's isotropic branch (media
-    and isotropic materials under 'mis') are now eligible, and the JAX
-    package takes each into its kernels too.  (Image-textured media still
-    raise: test_torch_quad_mis.py.)"""
+    """The kernel sub-slices that used to raise here are ported:
+    SAH-clustered quads (32 or more) and the NEE/MIS estimator's isotropic
+    branch are eligible, and the JAX package takes each into its kernels
+    too.  What the kernels still do not cover (an image-textured medium;
+    'mis' without NEE lights) raises in the kernel routes, naming the gap,
+    and routes on 'auto' as the JAX package routes it off the TPU:
+    sphere_kernel for 'path', else the reference route ('xla' there)."""
+    from rustraytrace_tpu import render as jrender
+    from rustraytrace_tpu_torch import render
+
     jscene, integ = _unported_scene(case)
     scene = scene_from_numpy(_jax_fields(jscene))
+    if sub_slice == "reference routes":
+        gap = "image-textured" if case == "image_fog_path" else "NEE lights"
+        with pytest.raises(NotImplementedError, match=gap):
+            megakernel_eligible(scene, integ)
+        # called directly, the kernel passes raise (image scenes take
+        # the wavefront image route, the rest the megakernels)
+        direct = (render_pass_wavefront if "image" in scene.features
+                  else render_pass_megakernel)
+        with pytest.raises(NotImplementedError, match=gap):
+            direct(scene, derive_camera(RenderConfig(image_width=8), "cpu"),
+                   0, width=8, height=8, spp=1, max_depth=2,
+                   mis=integ == "mis", device="cpu")
+        want = jrender.resolve_backend(jscene, integ)
+        assert render.resolve_backend(scene, integ) == (
+            "reference" if want == "xla" else want)
+        return
     assert megakernel_eligible(scene, integ)
     # the media cases carry the isotropic material, the quad case 32 quads
     assert (4 in np.asarray(jscene.mat_kind)) == (sub_slice == "K2(c) media")
@@ -147,6 +180,20 @@ def test_port_never_imports_jax_or_the_jax_package():
         "rustraytrace_tpu_torch.models.book3_cornell_box()\n"
         "rustraytrace_tpu_torch.models.get_scene('the_next_week')\n"
         "import rustraytrace_tpu_torch.utils.image_io\n"
+        "import rustraytrace_tpu_torch.camera\n"
+        "import rustraytrace_tpu_torch.ops.rng\n"
+        "import rustraytrace_tpu_torch.ops.perlin\n"
+        "import rustraytrace_tpu_torch.ops.textures\n"
+        "import rustraytrace_tpu_torch.ops.intersect\n"
+        "import rustraytrace_tpu_torch.ops.materials\n"
+        "import rustraytrace_tpu_torch.ops.integrator\n"
+        "import rustraytrace_tpu_torch.ops.dense_hit\n"
+        "import rustraytrace_tpu_torch.scripts.spike_dense_mxu\n"
+        "s, c, _ = rustraytrace_tpu_torch.models.book1_three_spheres(\n"
+        "    dict(image_width=8, samples_per_pixel=1, max_depth=2))\n"
+        "for b in ('reference', 'sphere_kernel'):\n"
+        "    rustraytrace_tpu_torch.render.render_image(s, c, backend=b,\n"
+        "                                               device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rustraytrace_tpu' or m.startswith('rustraytrace_tpu.')]\n"
         "assert not bad, bad\n"

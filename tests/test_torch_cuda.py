@@ -333,3 +333,115 @@ def test_smoke_mis_kernels_match_plain(cuda, smoke):
     assert float(plain.sum()) > 0
     assert torch.equal(k3, plain)
     assert torch.equal(k4, plain)
+
+
+def _spike_rays(ns, n_rays, cuda, seed=0):
+    """The spike's tables and rays (ops: scripts.spike_dense_mxu), with
+    ``n_rays`` rays drawn as the spike draws its 4,096."""
+    from rustraytrace_tpu_torch.scripts.spike_dense_mxu import spike_inputs
+
+    dtab, stab, _, _ = spike_inputs(ns, seed)
+    rng = np.random.default_rng(seed + 1)
+    o = rng.uniform(-100, 100, (3, n_rays)).astype(np.float32)
+    d = rng.normal(size=(3, n_rays)).astype(np.float32)
+    rays = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in (*o, *d)]
+    return (torch.from_numpy(dtab).to(cuda), torch.from_numpy(stab).to(cuda),
+            rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,n_rays", [(512, 4096), (1024, 65536)])
+def test_scalar_hit_kernel_matches_plain(cuda, ns, n_rays):
+    """S1's scalar loop against its twin: bitwise (-fmad=false), for one
+    scan and for three (the repeat changes nothing)."""
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    _, stab, rays = _spike_rays(ns, n_rays, cuda)
+    before = _cuda.launch_counts()["scalar_hit"]
+    tk, ik = dh.scalar_hit(stab, *rays, iters=1)
+    t3, i3 = dh.scalar_hit(stab, *rays, iters=3)
+    assert _cuda.launch_counts()["scalar_hit"] == before + 2
+    tp, ip = dh.scalar_hit_plain(stab, *rays)
+    assert int((ip >= 0).sum()) > n_rays // 8
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
+    assert torch.equal(i3, ip) and torch.equal(t3, tp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("n_rays", [4096, 65536])
+def test_dense_hit_kernel_matches_plain(cuda, precision, n_rays):
+    """S1's tensor-core kernel against its twin (float32 matmul, TF32 off;
+    operands rounded to TF32 for 'default'): winner index and hit mask
+    equal on >= 99.9% of rays; |dt| <= 1e-2 where both hit, on every ray
+    at the spike's 4,096 and on >= 99.9% of them at 65,536 (there even
+    exactly rounded products differ from the twin by more on near-tangent
+    rays: 1.1e-2 at 262,144 rays in a float64 emulation); and the first
+    index on a tie (two copies of one sphere)."""
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    dtab, _, rays = _spike_rays(1024, n_rays, cuda)
+    before = _cuda.launch_counts()["dense_hit"]
+    tk, ik = dh.dense_hit(dtab, *rays, iters=2, precision=precision)
+    assert _cuda.launch_counts()["dense_hit"] == before + 1
+    tp, ip = dh.dense_hit_plain(dtab, *rays, precision=precision)
+    both = (ik >= 0) & (ip >= 0)
+    assert int(both.sum()) > n_rays // 8
+    assert ((ik >= 0) == (ip >= 0)).float().mean().item() >= 0.999
+    assert (ik == ip).float().mean().item() >= 0.999
+    dt = torch.abs(tk - tp)[both]
+    if n_rays == 4096:
+        assert dt.max().item() <= 1e-2
+    else:
+        assert (dt <= 1e-2).float().mean().item() >= 0.999
+    wins = torch.bincount(ip[ip >= 0].long(), minlength=1024)
+    k = int(torch.argmax(wins[:900]))  # a sphere that wins many rays
+    tie = dtab.clone()
+    tie[:, 1000] = tie[:, k]
+    tk, ik = dh.dense_hit(tie, *rays, precision=precision)
+    assert int((ik == k).sum()) > 0 and int((ik == 1000).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["book1_random_spheres",
+                                  "book2_bouncing_spheres",
+                                  "book2_cornell_smoke", "book2_earth"])
+def test_closest_hit_spheres_kernel_matches_twin(cuda, name):
+    """The sphere_kernel route's closest hit with K1 against the same
+    function with K1's twin: every record field bitwise equal."""
+    from rustraytrace_tpu_torch import render
+
+    scene = render._scene_on(models.get_scene(name)[0], cuda)
+    o, d, t = (x.to(cuda) for x in _rays(8192, seed=4))
+    um = torch.rand((8192, 4), generator=torch.Generator().manual_seed(1))
+    um = um.to(cuda)
+    before = _cuda.launch_counts()["sphere_hit"]
+    rk, mk_ = hit.closest_hit_spheres(o, d, t, scene, u_media=um)
+    assert _cuda.launch_counts()["sphere_hit"] == before + 1
+    rp, mp = hit.closest_hit_spheres(o, d, t, scene, u_media=um,
+                                     hit_fn=hit.sphere_hit_plain)
+    for f in ("valid", "t", "p", "normal", "front_face", "mat", "u", "v"):
+        assert torch.equal(getattr(rk, f), getattr(rp, f)), f
+    for f in ("kind", "albedo", "fuzz", "ior"):
+        assert torch.equal(getattr(mk_, f), getattr(mp, f)), f
+
+
+@pytest.mark.cuda
+def test_sphere_kernel_route_matches_its_twin(cuda):
+    """A sphere_kernel pass with K1 == the same pass with K1's twin,
+    bitwise; K1 launched max_depth times per chunk (a chunk traces every
+    sample of the pass at once)."""
+    from rustraytrace_tpu_torch import render
+
+    scene, cfg, _ = models.book1_random_spheres(dict(image_width=64))
+    cam = derive_camera(cfg, cuda)
+    kw = dict(width=64, height=cfg.image_height, spp=2, max_depth=8,
+              chunk=1024, device=cuda)
+    _cuda.reset_launch_counts()
+    k = render.render_pass(scene, cam, 3, backend="sphere_kernel", **kw)
+    n_chunks = -(-64 * cfg.image_height // 1024)
+    assert _cuda.launch_counts()["sphere_hit"] == 8 * n_chunks
+    p = render._render_pass_reference(scene, cam, 3, backend="sphere_kernel",
+                                      hit_fn=hit.sphere_hit_plain, **kw)
+    assert torch.equal(k, p)

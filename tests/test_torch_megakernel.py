@@ -118,13 +118,17 @@ def test_mis_routes_to_the_megakernel_on_cuda(monkeypatch):
 
 
 def test_unsupported_mis_and_quad_scenes_raise():
-    """MIS without NEE lights still raises; 32 or more quads (SAH quad
-    clusters) and isotropic media under MIS are ported and route to the
-    kernels."""
+    """MIS without NEE lights still raises in the kernel routes, and on
+    'auto' takes the reference route (the JAX package's XLA route); 32 or
+    more quads (SAH quad clusters) and isotropic media under MIS are ported
+    and route to the kernels."""
     assert mk.megakernel_mis_eligible(models.book3_cornell_box()[0])
     box, _, _ = models.book2_cornell_box()  # no NEE lights
     with pytest.raises(NotImplementedError, match="1 to 16 NEE lights"):
-        render.resolve_backend(box, "mis")
+        render.resolve_backend(box, "mis", "megakernel")
+    with pytest.raises(NotImplementedError, match="1 to 16 NEE lights"):
+        mk.megakernel_mis_eligible(box)
+    assert render.resolve_backend(box, "mis") == "reference"
     b = SceneBuilder()
     for k in range(mk.QUAD_CLUSTER_MIN):
         b.add_quad((k, 0, 0), (1, 0, 0), (0, 1, 0), b.lambertian((.5,) * 3))

@@ -70,11 +70,14 @@ def test_passes_resume_and_route():
         dict(image_width=32, samples_per_pixel=8, max_depth=4,
              spp_per_pass=4))
     assert render.resolve_backend(scene, "path", device="cpu") == "plain"
-    # 'mis' runs in-kernel (K3 / K2(d)) and needs the scene's NEE lights
+    # 'mis' runs in-kernel (K3 / K2(d)) with the scene's NEE lights; a
+    # scene without them takes the reference route, and the kernel routes
+    # asked for by name raise
     cornell, _, _ = models.book3_cornell_box()
     assert render.resolve_backend(cornell, "mis", device="cpu") == "plain"
+    assert render.resolve_backend(scene, "mis") == "reference"
     with pytest.raises(NotImplementedError, match="NEE lights"):
-        render.resolve_backend(scene, "mis")
+        render.resolve_backend(scene, "mis", "plain")
     seen = []
     _, full = render.render_image(scene, cfg, on_pass=seen.append, device="cpu")
     assert [s["spp_done"] for s in seen] == [4, 8]

@@ -3,7 +3,8 @@ with a given ``SceneBuilder`` class, so that the JAX package's builder and
 the port's build the same scene: a field of random quads (the JAX
 package's tests/test_quad_cluster.py ``_quad_field``) and its volumetric
 MIS scene (tests/test_round4_tpu.py ``_smoke_mis_scene``), with their
-camera settings.  Imports numpy only."""
+camera settings; and the scene of an image-textured constant medium,
+which the kernel routes do not cover.  Imports numpy only."""
 
 import numpy as np
 
@@ -48,6 +49,24 @@ def smoke_mis_scene(builder_cls, smoke=(0.0, 0.0, 0.0)):
     return b.build()
 
 
+def image_medium_scene(builder_cls):
+    """A fog sphere whose isotropic phase albedo is an image texture (a 4x4
+    checker of two colors) over a ground sphere under the sky: the JAX
+    package renders it only on its XLA routes, the port on its reference
+    routes."""
+    b = builder_cls()
+    img = np.zeros((4, 4, 3), np.float32)
+    img[...] = (0.9, 0.3, 0.2)
+    img[::2, ::2] = img[1::2, 1::2] = (0.2, 0.4, 0.9)
+    b.add_medium_sphere((0, 1, 0), 1.0, 0.8,
+                        b.isotropic(tex=b.image_texture(img)))
+    b.add_sphere((0, -1000, 0), 1000.0, b.lambertian((0.5, 0.5, 0.5)))
+    b.add_sphere((2.2, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.1))
+    return b.build()
+
+
+IMAGE_MEDIUM_CFG = dict(aspect_ratio=1.0, vfov=40.0, lookfrom=(0, 2, 8),
+                        lookat=(0.5, 0.8, 0))
 SMOKE_CFG = dict(aspect_ratio=1.0, background=(0.0, 0.0, 0.0), vfov=40.0,
                  lookfrom=(278.0, 278.0, -800.0), lookat=(278.0, 278.0, 0.0))
 FIELD_CFG = dict(aspect_ratio=1.0, vfov=60.0, lookfrom=(0, 0, 60),
