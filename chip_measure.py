@@ -28,9 +28,20 @@ numbers behind PERF.md's findings:
    "sphere_kernel")`` (one pass, one chunk; K1 every bounce) and the
    Book-3 Cornell box at 16 spp (4x4 strata) through ``backend=
    "reference"``: warm wall over ``--reps`` reps, then one profiled call
-   each (device time by kernel, K1's share, the idle share).
+   each (device time by kernel, K1's share, the idle share);
+9. K2 and K1 at the main paths' own launches (``--kernels`` runs only this
+   item): the flagship's third 128-iteration K2 launch, a mid-loop launch
+   of the final scene with its tile bounds and a ``sphere_field_10k``
+   launch, each taken from the main path's own loop and timed from copies
+   of its state, with the COUNT instance's bound and SIMT efficiency, a
+   bitwise check against the plain twin and the sweep of K2's cooperative
+   threshold T (one build per T, ``-DRTT_COOP_LANES=T``); K1 at the
+   sphere_kernel flagship's first-bounce
+   rays; then one profiled call of each of the three main paths (the
+   flagship, the final scene, the sphere_kernel flagship).
 
     python3 chip_measure.py [--reps 3] [--spp 1024] [--heads] [--reference]
+                            [--kernels]
     python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
@@ -55,12 +66,15 @@ import time
 
 
 def _ab_child(reps: int) -> dict:
-    """Warm timings of the flagship and the Book-3 Cornell box with the
-    package on sys.path; uses only calls the earlier slices have too."""
+    """Warm timings of the flagship, the Book-3 Cornell box, the 4K pass,
+    the final scene, K2's main-path launches, K1 at its route's shape and
+    the sphere_kernel route, with the package on sys.path; uses only calls
+    the earlier slices have too."""
     import torch
 
     from rustraytrace_tpu_torch import models, render
     from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import hit
     from rustraytrace_tpu_torch.ops import megakernel as mk
     from rustraytrace_tpu_torch.ops import wavefront as wf
 
@@ -119,7 +133,39 @@ def _ab_child(reps: int) -> dict:
     s9, c9, _ = models.get_scene("the_next_week")
     out["final_render_image_s"] = walls(lambda: render.render_image(
         s9, c9, device=dev))
+
+    # K2 at the main paths' own launches and K1 at its route's shape, with
+    # this script's helpers (chip_smoke.py beside it) on either package
+    smoke = _smoke()
+    out["flagship_k2_launch3_ms"] = smoke._k2_launch_ms(
+        smoke._k2_main_launch(sf, cf, "path", dev, 3, spp=1024), reps=reps)
+    out["final_k2_launch119_ms"] = smoke._k2_launch_ms(
+        smoke._k2_main_launch(s9, c9, "path", dev, 119, spp=250), reps=reps)
+    args = smoke._k1_route_args(dev)
+    # the float4 planes, built once a pass on the route (earlier slices
+    # have none)
+    kw = ({"f4": hit.sphere_table_f4(args[3])}
+          if hasattr(hit, "sphere_table_f4") else {})
+    out["k1_route_ms"] = event_ms(lambda: hit.sphere_hit(*args, **kw))
+    del args, kw
+    sk, ck, _ = models.book1_random_spheres(
+        dict(image_width=1200, samples_per_pixel=16, max_depth=50))
+    out["sphere_kernel_render_image_s"] = walls(lambda: render.render_image(
+        sk, ck, backend="sphere_kernel", chunk=1 << 20, device=dev))
     return out
+
+
+def _smoke():
+    """chip_smoke.py beside this script, loaded by path (an A/B child runs
+    with another checkout's directory first on the path)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # scripts/bench_backends.py CASES: scene, overrides, spp, depth, mis
@@ -313,6 +359,128 @@ def _reference_routes(reps: int) -> None:
         _profiled(label, fn)
 
 
+# K2 at the main paths' own launches: label, scene, overrides, launch, the
+# pass's samples (None: render_image's first pass)
+K2_CASES = (
+    ("flagship, launch 3 of 52", "book1_random_spheres",
+     dict(image_width=1200, samples_per_pixel=1024, max_depth=50), 3, 1024),
+    ("the_next_week, launch 119 of 237", "the_next_week", None, 119, None),
+    ("sphere_field_10k, launch 3", "sphere_field_10k", None, 3, None))
+
+# the sweep that fixed K2's cooperative threshold T (csrc/path.cuh
+# COOP_LANES; 0: never cooperative, 32: always)
+COOP_SWEEP = (0, 4, 8, 12, 16, 24, 32)
+
+
+def _k2_cases(reps: int) -> list:
+    """``chip_smoke._k2_launch`` of each of K2_CASES with the library as
+    built: [(label, lanes, result)]; the sphere_field_10k launch is held
+    against 2 plain iterations, the others against 8."""
+    import torch
+
+    from chip_smoke import _k2_launch, _k2_main_launch
+    from rustraytrace_tpu_torch import models
+
+    dev = torch.device("cuda")
+    out = []
+    for label, name, over, launch, spp in K2_CASES:
+        scene, cfg, integ = models.get_scene(name, over)
+        loop = _k2_main_launch(scene, cfg, integ, dev, launch, spp=spp)
+        r = _k2_launch(loop, reps=reps,
+                       plain_iters=2 if name == "sphere_field_10k" else 8)
+        r["persist_iters"] = loop[4]["persist_iters"]
+        out.append((label, loop[0].n_lanes, r))
+        del loop
+    return out
+
+
+def _sweep_child(T: int, reps: int) -> dict:
+    """K2_CASES with the library built for COOP_LANES = T: ms, bitwise
+    equality with the plain twin and SIMT efficiency per case, and K2's
+    registers."""
+    from chip_smoke import _registers
+    from rustraytrace_tpu_torch.ops import _cuda
+
+    _cuda.NVCC_FLAGS = _cuda.NVCC_FLAGS + (f"-DRTT_COOP_LANES={T}",)
+    out = {"T": T}
+    for label, _, r in _k2_cases(reps):
+        out[label] = dict(ms=r["ms"], equal=r["equal"], simt=r["simt"])
+    out["registers"] = {k: v for k, v in _registers(
+        _cuda.build_info["log"]).items() if "persist" in k}
+    return out
+
+
+def _kernels(reps: int) -> None:
+    """Item 9: K2 at the main paths' own launches and K1 at its route's
+    shape.  K2: the flagship's third launch (128 iterations, after two
+    launches and their sorts), a mid-loop launch of the final scene (its
+    119th of 237, with its tile bounds) and ``sphere_field_10k``'s third
+    launch, each taken from the main path's own loop
+    (``chip_smoke._k2_main_launch``): device ms from copies of the loop
+    state, the COUNT instance's work, bound and SIMT efficiency, and 8
+    iterations (2 on the field) held bitwise against the plain twin; then
+    the T sweep, one process per T, each building the kernels with
+    ``-DRTT_COOP_LANES=T``, which prints K2's registers.  K1: the
+    sphere_kernel flagship's 12,960,000 first-bounce rays x 487 spheres."""
+    import torch
+
+    from chip_smoke import (OPS, _bound, _cuda_ms, _cuda_ms_once,
+                            _k1_route_args)
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import hit
+
+    dev = torch.device("cuda")
+    for label, lanes, r in _k2_cases(reps):
+        print(json.dumps({"item": "K2 launch", "case": label,
+                          "lanes": lanes, **r}), flush=True)
+    for T in COOP_SWEEP:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sweep-child",
+             str(T), "--reps", str(reps)], capture_output=True, text=True,
+            timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"T sweep child {T} failed:\n{res.stdout}\n"
+                               f"{res.stderr}")
+        print(json.dumps({"item": "K2 sweep", **json.loads(
+            res.stdout.strip().splitlines()[-1])}), flush=True)
+
+    args = _k1_route_args(dev)
+    n_rays, n_sph = args[0].shape[0], args[3].shape[0]
+    f4 = hit.sphere_table_f4(args[3])  # built once a pass on the route
+    ms = _cuda_ms(lambda: hit.sphere_hit(*args, f4=f4), reps)
+    (tp, ip), plain_ms = _cuda_ms_once(lambda: hit.sphere_hit_plain(*args))
+    tk, ik = hit.sphere_hit(*args)
+    equal = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
+    bound, by = _bound(n_rays * (n_sph * OPS["sphere"] + 6), n_rays * 9 * 4)
+    print(json.dumps({"item": "K1 launch", "rays": n_rays, "spheres": n_sph,
+                      "ms": ms, "plain_ms": plain_ms, "equal": equal,
+                      "bound": bound, "by": by}), flush=True)
+    del args, tp, ip, tk, ik
+
+    # the three main paths end to end, profiled once each after a warm-up
+    from rustraytrace_tpu_torch import render
+
+    sf, cf, _ = models.book1_random_spheres(
+        dict(image_width=1200, samples_per_pixel=1024, max_depth=50))
+    camf = derive_camera(cf, device=dev)
+    s9, c9, _ = models.get_scene("the_next_week")
+    sk, ck, _ = models.book1_random_spheres(
+        dict(image_width=1200, samples_per_pixel=16, max_depth=50))
+    for label, fn in (
+            ("flagship render_pass 1200x675 1024 spp",
+             lambda: render.render_pass(sf, camf, cf.seed, width=1200,
+                                        height=675, spp=1024, max_depth=50,
+                                        device=dev)),
+            ("the_next_week render_image 400x400 250 spp",
+             lambda: render.render_image(s9, c9, device=dev)),
+            ("sphere_kernel flagship render_image 1200x675 16 spp",
+             lambda: render.render_image(sk, ck, backend="sphere_kernel",
+                                         chunk=1 << 20, device=dev))):
+        fn()
+        _profiled(label, fn)
+
+
 def _ab(parent: str, reps: int) -> int:
     """Run _ab_child with the package of ``parent`` and of this checkout,
     in turns (parent, change, change, parent), one process each."""
@@ -345,7 +513,11 @@ def main() -> int:
                     help="run item 7 only")
     ap.add_argument("--reference", action="store_true",
                     help="run item 8 only")
+    ap.add_argument("--kernels", action="store_true",
+                    help="run item 9 only")
     ap.add_argument("--ab-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sweep-child", type=int, metavar="T",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -353,6 +525,9 @@ def main() -> int:
         return 1
     if args.ab_child:
         print(json.dumps(_ab_child(args.reps)))
+        return 0
+    if args.sweep_child is not None:
+        print(json.dumps(_sweep_child(args.sweep_child, args.reps)))
         return 0
     from rustraytrace_tpu_torch import models, render
     from rustraytrace_tpu_torch.config import derive_camera
@@ -370,6 +545,9 @@ def main() -> int:
         return 0
     if args.reference:
         _reference_routes(args.reps)
+        return 0
+    if args.kernels:
+        _kernels(args.reps)
         return 0
     dev = torch.device("cuda")
     spp, depth = args.spp, 50

@@ -23,12 +23,18 @@ paths on the card:
 
 then the other routes, each also held bitwise against the plain twin at
 its full lane count.  Phases: 1 env, 2 build (registers of every kernel
-instance), 3 K1, 4 K2 launch, 4b K2 launch with MIS and quads, 5 sort
-invariance, 6 flagship, 7 Book-3 Cornell box on K3, 8 other K3 routes and
-the two-level cluster cull, 9 the final scene (one K2 launch vs the twin,
-sorted with tile bounds == unsorted == K3, the main path, a 104-spp pass
-of scene 9), every other Book-2 scene and ``sphere_field_10k`` at its own
-config, and a MIS scene with the Book-2 features; 10 K4 (the Book-3 path,
+instance), 3 K1, 3b K1 on a table of ten ring tiles, moving spheres,
+quads, ragged ray counts and exact ties, 4 K2 launch, 4b K2 launch with
+MIS and quads, 4c K2 at the flagship's third 128-iteration launch (timed
+from copies of the loop state, its bound and SIMT efficiency, 8
+iterations vs the twin), 5 sort invariance, 6 flagship (and
+``render_image``'s ``on_pass`` getting a host copy), 7 Book-3 Cornell box
+on K3, 8 other K3 routes and the two-level cluster cull, 9 the final scene
+(one K2 launch vs the twin, launch 119 of 237 with its tile bounds timed
+and vs the twin, sorted with tile bounds == unsorted == K3, the main path,
+a 104-spp pass of scene 9), every other Book-2 scene and
+``sphere_field_10k`` at its own config (and its third K2 launch), and a
+MIS scene with the Book-2 features; 10 K4 (the Book-3 path,
 == K3 bitwise at full configuration, == its twin, the Cornell smoke); 11
 K5 (the final-scene path, == the persist render bitwise, one launch vs the
 twin at full lanes, earth); 12 SAH quad clusters (1,024 quads, camera
@@ -133,9 +139,11 @@ def _path_ops(work, tables) -> float:
     """Operations of a path-tracer launch from its work counters
     (ops/megakernel.py WORK_NAMES: bounces, sphere rows tested, cluster
     boxes tested, box rows tested, media free flights, Perlin noise
-    evaluations, texel fetches, quad rows tested) and its tables."""
+    evaluations, texel fetches, quad rows tested; the ninth, the sphere
+    rows as warps issue them, measures SIMT efficiency, not work) and its
+    tables."""
     (bounces, spheres, boxes, box_rows, media, noise, texels,
-     quads) = (int(v) for v in work.tolist())
+     quads, _) = (int(v) for v in work.tolist())
     per_bounce = OPS["path_bounce"]
     if tables.mis:
         kinds = [int(k) for k in tables.ltab[:tables.n_lights, 0].tolist()]
@@ -230,7 +238,9 @@ def _registers(log: str) -> dict:
                         mangled)
             # template flags: "ILb0ELb1ELb0E" -> [False, True, False]
             flags = [f == "1" for f in re.findall(r"Lb([01])E", mangled)]
-            if len(flags) == 1:  # dense_hit_kernel<HIGHEST>
+            if len(flags) == 1 and base == "sphere_hit_kernel":
+                base += "<moving>" if flags[0] else "<static>"
+            elif len(flags) == 1:  # dense_hit_kernel<HIGHEST>
                 base += "<highest>" if flags[0] else "<default>"
             if len(flags) == 2:  # segment_kernel<BOOK2, COUNT>
                 flags = [False] + flags
@@ -288,6 +298,181 @@ def _route_tables(scene, cam, cfg, integ, dev):
     return mk.prepare_megakernel(
         scene, cam, width=w, height=h, tile_rows=rows, mis=integ == "mis",
         stratified=cfg.stratified, sqrt_spp=n, device=dev), route
+
+
+class _Stop(Exception):
+    """Ends a pass at the launch ``_k2_main_launch`` takes."""
+
+
+def _k2_main_launch(scene, cfg, integ, dev, launch, *, spp=None):
+    """The input of K2's launch ``launch`` (from 1) in the main path's
+    first pass: ``render.render_pass``'s call of
+    ``wavefront.render_pass_wavefront`` at the pass's samples (``spp``, by
+    default those of ``render_image``'s first pass of ``cfg``), driven with
+    a step that runs K2 for the launches before ``launch`` and stops the
+    pass there.  Returns (tables, seed, state, slot, launch arguments),
+    copies of what the loop hands that launch."""
+    from rustraytrace_tpu_torch import render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    w, h = cfg.image_width, cfg.image_height
+    stratified = cfg.stratified
+    sqrt_spp = int(np.sqrt(cfg.samples_per_pixel)) if stratified else 0
+    if spp is None:
+        total = sqrt_spp * sqrt_spp if stratified else cfg.samples_per_pixel
+        spp = min(total, render.effective_spp_per_pass(
+            cfg, render.resolve_backend(scene, integ, "auto", dev), total,
+            w * h))
+    got = []
+
+    def step(state, slot, tables, seed, **kw):
+        if len(got) + 1 == launch:
+            tb = kw["tile_bounds"]
+            got.append((tables, seed, state.clone(), slot.clone(), dict(
+                kw, tile_bounds=None if tb is None else tb.clone())))
+            raise _Stop
+        got.append(None)
+        wf.persist_step(state, slot, tables, seed, **kw)
+
+    try:
+        wf.render_pass_wavefront(
+            scene, derive_camera(cfg, device=dev), cfg.seed, width=w,
+            height=h, spp=spp, max_depth=cfg.max_depth,
+            mis=integ == "mis", stratified=stratified, sqrt_spp=sqrt_spp,
+            step=step, device=dev)
+    except _Stop:
+        return got[-1]
+    raise RuntimeError(f"the pass made {len(got)} K2 launches, fewer than "
+                       f"{launch}")
+
+
+def _k2_launch_ms(loop, *, reps) -> float:
+    """Mean device ms of the K2 launch ``loop`` (``_k2_main_launch``) over
+    ``reps`` launches, each from a fresh copy of the state, after one
+    warm-up."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    tables, seed, state, slot, kw = loop
+    copies = [state.clone() for _ in range(reps + 1)]
+    wf.persist_step(copies[0], slot, tables, seed, **kw)
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for (a, b), st in zip(evs, copies[1:]):
+        a.record()
+        wf.persist_step(st, slot, tables, seed, **kw)
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def _k2_launch(loop, *, reps, plain_iters=8):
+    """The K2 launch ``loop`` (``_k2_main_launch``): its mean device ms
+    over ``reps`` launches, each from a fresh copy of the state; the work
+    the COUNT instance counts from the same state, the bound from it and
+    the SIMT efficiency of the leaf scans (sphere rows / (32 x the rows
+    warps issue)); whether ``plain_iters`` iterations of the kernel equal
+    as many of ``persist_step_plain`` bitwise from the same state, and the
+    plain twin's ms for them."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    tables, seed, state, slot, kw = loop
+    tb = kw["tile_bounds"]
+    ms = _k2_launch_ms(loop, reps=reps)
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                       device=state.device)
+    wf.persist_step(state.clone(), slot, tables, seed, work=work, **kw)
+    w = _work(work)
+    # state read and written once, the slot and the tile bounds read once
+    nbytes = state.numel() * 8 + slot.numel() * 4 + (
+        0 if tb is None else tb.numel() * 4)
+    bound, by = _bound(_path_ops(work, tables), nbytes)
+    out = dict(ms=ms, work=w, bound=bound, by=by, simt=w["sphere_rows"] / max(
+        32 * w["warp_sphere_rows"], 1))
+    k, p = state.clone(), state.clone()
+    kwp = dict(kw, persist_iters=plain_iters)
+    wf.persist_step(k, slot, tables, seed, **kwp)
+    _, out["plain_ms"] = _cuda_ms_once(
+        lambda: wf.persist_step_plain(p, slot, tables, seed, **kwp))
+    out["equal"] = bool(torch.equal(k, p))
+    out["err"] = torch.abs(k - p).max().item()
+    return out
+
+
+def _k1_route_args(dev):
+    """The arguments of K1's first launch on the sphere_kernel flagship
+    (1200x675, 16 spp in one pass and one chunk): the pass's first-bounce
+    rays, 12,960,000 of them padded to the chunk, x 487 spheres."""
+    from rustraytrace_tpu_torch import models, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import hit
+
+    scene, cfg, _ = models.book1_random_spheres(dict(
+        image_width=1200, samples_per_pixel=16, max_depth=50))
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return hit.sphere_hit(*args)
+
+    render._render_pass_reference(
+        scene, derive_camera(cfg, device=dev), cfg.seed, width=1200,
+        height=cfg.image_height, spp=16, max_depth=1, chunk=1 << 20,
+        backend="sphere_kernel", hit_fn=record, device=dev)
+    return seen[0]
+
+
+def _k1_cases(dev) -> dict:
+    """K1 against its twin on the cases its ring and ray groups must get
+    right: a table of ten ring tiles (sphere_field_10k), moving spheres,
+    quads, ray counts that are no multiple of a block's 512 rays, and
+    exact ties (the flagship table twice: the first copy must win).
+    Returns {case: (t and idx bitwise equal, max |dt|)}."""
+    import torch
+
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.ops import hit
+
+    out = {}
+    flag = hit.pack_sphere_table(models.book1_random_spheres()[0]).to(dev)
+    none = torch.zeros((0, hit.Q_COLS), dtype=torch.float32, device=dev)
+    for case in ("tiles", "moving", "quads", "ragged", "ties"):
+        n = 65537 if case == "ragged" else 1 << 18
+        o, d, tm = (torch.from_numpy(x).to(dev) for x in _rays(n, 11))
+        sph, quad, moving = flag, none, False
+        if case == "tiles":
+            sph = hit.pack_sphere_table(
+                models.sphere_field_10k()[0]).to(dev)
+        elif case == "moving":
+            sph = hit.pack_sphere_table(
+                models.book2_bouncing_spheres()[0]).to(dev)
+            moving = True
+        elif case == "quads":
+            scene = models.book2_cornell_smoke()[0]
+            sph = hit.pack_sphere_table(scene).to(dev)
+            quad = hit.pack_quad_table(scene).to(dev)
+            rng = np.random.default_rng(11)
+            ob = rng.uniform(-50, 50, (n, 3)) + np.array([278, 278, -800])
+            db = rng.uniform(0, 555, (n, 3)) - ob
+            o, d = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                    for x in (ob, db))
+        elif case == "ties":
+            sph = torch.cat([flag, flag])
+        tk, ik = hit.sphere_hit(o, d, tm, sph, quad, moving)
+        tp, ip = hit.sphere_hit_plain(o, d, tm, sph, quad, moving)
+        eq = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
+        if case == "ties":
+            eq = eq and int(ik.max()) < flag.shape[0]
+        if case == "quads":
+            eq = eq and int((ik >= sph.shape[0]).sum()) > 0
+        out[case] = (eq, torch.abs(tk - tp).max().item(), n, sph.shape[0],
+                     quad.shape[0])
+    return out
 
 
 def _kernel_vs_plain(tables, route, seed, spp, depth, iters=8):
@@ -377,6 +562,19 @@ def _phase9(dev) -> dict:
           f"{_work(work9)}, bound {k2_bound:.4f} ms ({k2_by})", flush=True)
     _check(k2_equal, "K2 disagrees with its plain step on the final scene")
 
+    # the main path's own launch: launch 119 of 237, from the state and
+    # tile bounds of the sorted loop's first 118
+    k2m = _k2_launch(_k2_main_launch(s9, c9, i9, dev, 119), reps=10)
+    print(f"[9 K2 mid-loop launch] the_next_week launch 119 of 237 with its "
+          f"tile bounds: "
+          f"kernel {k2m['ms']:.4f} ms; work {k2m['work']}, bound "
+          f"{k2m['bound']:.4f} ms ({k2m['by']}), SIMT efficiency "
+          f"{k2m['simt']:.4f}; 8 iterations vs plain ({k2m['plain_ms']:.1f} "
+          f"ms): max |diff| {k2m['err']:.3g}, bitwise equal (required): "
+          f"{k2m['equal']}", flush=True)
+    _check(k2m["equal"],
+           "K2 disagrees with its plain step mid-loop on the final scene")
+
     # the launch loop: adaptive sorted == uniform unsorted == K3, 2 spp
     kwa = dict(spp=2, max_depth=d9, persist_iters=iters9)
     adaptive = wf._wavefront_pass_persist(
@@ -436,7 +634,8 @@ def _phase9(dev) -> dict:
     # ---- scene 9: one pass of 104 spp at 800x800, depth 40
     sN, cN, _ = models.get_scene("the_next_week", scene_num=9)
     wN, hN = cN.image_width, cN.image_height
-    perN = render.effective_spp_per_pass(cN, cN.samples_per_pixel, wN * hN)
+    perN = render.effective_spp_per_pass(cN, "wavefront",
+                                         cN.samples_per_pixel, wN * hN)
     camN = derive_camera(cN, device=dev)
     _cuda.reset_launch_counts()
     statsN: dict = {}
@@ -476,6 +675,21 @@ def _phase9(dev) -> dict:
         iters = 2 if name == "sphere_field_10k" else 8
         eq, err = _kernel_vs_plain(tab, route, cf.seed, spp_chk,
                                    cf.max_depth, iters)
+        if name == "sphere_field_10k":
+            # 10,001 spheres under the two-level cull, at the main
+            # path's third launch
+            loop10 = _k2_main_launch(sc, cf, ig, dev, 3)
+            it10 = loop10[4]["persist_iters"]
+            k10 = _k2_launch(loop10, reps=3, plain_iters=2)
+            del loop10
+            print(f"[9 sphere_field_10k K2 launch 3] {tab.n_lanes} lanes x "
+                  f"{it10} iterations ({tab.n_sclusters} super-clusters of "
+                  f"{tab.n_clusters} clusters): kernel {k10['ms']:.3f} "
+                  f"ms, bound {k10['bound']:.4f} ms ({k10['by']}), SIMT "
+                  f"efficiency {k10['simt']:.4f}; 2 iterations vs plain: "
+                  f"bitwise equal (required): {k10['equal']}", flush=True)
+            _check(k10["equal"], "K2 on sphere_field_10k's third launch")
+            err = max(err, k10["err"])
         errs[name] = err
         acc = st["accum"] / st["spp_done"]
         kern = "megakernel" if route == "k3" else "persist"
@@ -508,10 +722,12 @@ def _phase9(dev) -> dict:
           f"equal (required): {eqm2} / {eqm3}", flush=True)
     _check(eqm2 and eqm3, "kernels and plain twin differ on the MIS scene")
     return dict(k2_launches=counts9["persist"], k2_err=max(errs.values()),
-                errs=errs, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
-                k2_bound=k2_bound, k2_by=k2_by, R9=R9, iters9=iters9,
+                errs=errs, k2_ms=k2m["ms"], k2_plain_ms=k2m["plain_ms"],
+                k2_bound=k2m["bound"], k2_by=k2m["by"], k2_simt=k2m["simt"],
+                k2_zero_ms=k2_ms, k2_zero_plain_ms=k2_plain_ms,
+                k2_zero_bound=k2_bound, R9=R9, iters9=iters9,
                 k3f_ms=k3f_ms, k3f_bound=k3f_bound, k3f_by=k3f_by,
-                k2_work=_work(work9), k3f_work=_work(work3),
+                k2_work=k2m["work"], k3f_work=_work(work3),
                 paths_per_s=w9 * h9 * spp9 / wall9, scene=s9, cfg=c9,
                 cam=cam9, tables=tab9, accum=st9["accum"], plain4=plain9,
                 uniform2=uniform, k3_2=k3_final)
@@ -847,7 +1063,7 @@ def _phase14(dev) -> dict:
         image_width=1200, samples_per_pixel=16, max_depth=50))
     w, h, spp, seed = cfg.image_width, cfg.image_height, 16, cfg.seed
     chunk = 1 << 20  # one chunk per image
-    per = render.effective_spp_per_pass(cfg, spp, w * h, "sphere_kernel")
+    per = render.effective_spp_per_pass(cfg, "sphere_kernel", spp, w * h)
     passes = -(-spp // per)
     chunks = -(-(w * h) // min(chunk, -(-(w * h) // 256) * 256))
     _cuda.reset_launch_counts()
@@ -909,18 +1125,10 @@ def _phase14(dev) -> dict:
            "differs from its twin, from K2 or from the reference route")
 
     # K1 at the main path's shape: the first bounce's rays of the pass
-    seen = []
-
-    def record(*args):
-        seen.append(args)
-        return hit.sphere_hit(*args)
-
-    render._render_pass_reference(scene, cam, seed, spp=spp,
-                                  backend="sphere_kernel", hit_fn=record,
-                                  **dict(kw, max_depth=1))
-    args = seen[0]
+    args = _k1_route_args(dev)
     n_rays, n_sph = args[0].shape[0], args[3].shape[0]
-    ms = _cuda_ms(lambda: hit.sphere_hit(*args), 5)
+    f4 = hit.sphere_table_f4(args[3])  # built once a pass on the route
+    ms = _cuda_ms(lambda: hit.sphere_hit(*args, f4=f4), 5)
     (tp, ip), plain_ms = _cuda_ms_once(lambda: hit.sphere_hit_plain(*args))
     tk, ik = hit.sphere_hit(*args)
     eq1 = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
@@ -950,7 +1158,7 @@ def _phase14(dev) -> dict:
         cnt = _cuda.launch_counts()
         sp = sst["spp_done"]
         npass = -(-sp // render.effective_spp_per_pass(
-            cf, sp, cf.image_width * cf.image_height, "sphere_kernel"))
+            cf, "sphere_kernel", sp, cf.image_width * cf.image_height))
         sacc = sst["accum"] / sp
         walls[name] = wl
         print(f"[14 {name}] {cf.image_width}x{cf.image_height} {sp} spp "
@@ -1216,7 +1424,10 @@ def main() -> int:
     same_i = (i_k == i_p).float().mean().item()
     k1_equal = bool(torch.equal(i_k, i_p) and torch.equal(t_k, t_p))
     k1_err = torch.abs(t_k - t_p).max().item()
-    k1_ms = _cuda_ms(lambda: hit.sphere_hit(o, d, tm, sph, quad, False), 20)
+    # as on the route: the float4 planes built once for the table
+    f4 = hit.sphere_table_f4(sph)
+    k1_ms = _cuda_ms(lambda: hit.sphere_hit(o, d, tm, sph, quad, False,
+                                            f4=f4), 20)
     k1_plain_ms = _cuda_ms(
         lambda: hit.sphere_hit_plain(o, d, tm, sph, quad, False), 3)
     # full scan: every ray tests every sphere; 7 f32 in and 2 words out
@@ -1229,6 +1440,12 @@ def main() -> int:
           f"{k1_plain_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})",
           flush=True)
     _check(k1_equal, "K1 disagrees with plain")
+    k1_cases = _k1_cases(dev)
+    for case, (eq, err, n, ns, nq) in k1_cases.items():
+        print(f"[3b K1 {case}] {n} rays x {ns} spheres, {nq} quads: max "
+              f"|dt| {err:.3g}, t and idx bitwise equal (required): {eq}",
+              flush=True)
+        _check(eq, f"K1 disagrees with plain on {case}")
 
     # ---- 4: one bounded persist launch, kernel vs plain
     s4, c4, _ = models.book1_random_spheres(dict(image_width=160))
@@ -1290,6 +1507,22 @@ def main() -> int:
           f"equal (required): {b_equal}", flush=True)
     _check(b_equal, "MIS persist kernel disagrees with its plain step")
 
+    # ---- 4c: K2 at the flagship's main-path launch: two 128-iteration
+    # launches and their sorts, then the third from copies of that state
+    loopF = _k2_main_launch(scene, cfg, "path", dev, 3, spp=FLAGSHIP_SPP)
+    itF = loopF[4]["persist_iters"]
+    k2F = _k2_launch(loopF, reps=5)
+    del loopF
+    print(f"[4c K2 flagship main-path launch] launch 3 of the sorted loop, "
+          f"{RF} lanes x {itF} iterations: kernel {k2F['ms']:.3f} ms; work "
+          f"{k2F['work']}, bound {k2F['bound']:.4f} ms ({k2F['by']}), SIMT "
+          f"efficiency of the leaf scans {k2F['simt']:.4f}; 8 iterations "
+          f"from that state vs plain ({k2F['plain_ms']:.1f} ms): max |diff| "
+          f"{k2F['err']:.3g}, bitwise equal (required): {k2F['equal']}",
+          flush=True)
+    _check(k2F["equal"], "K2 disagrees with its plain step at the "
+           "flagship's main-path launch")
+
     # ---- 5: bitwise invariance of the kernel render to the ray sort
     s5, c5, _ = models.book1_random_spheres(dict(image_width=320))
     tab5 = mk.prepare_megakernel(s5, derive_camera(c5, device=dev), width=320,
@@ -1330,13 +1563,18 @@ def main() -> int:
     _cuda.reset_launch_counts()
     small_cfg = cfg.replace(image_width=320, samples_per_pixel=64,
                             spp_per_pass=16)
-    img_small, st_small = render.render_image(scene, small_cfg, device=dev)
+    passes_seen = []
+    img_small, st_small = render.render_image(
+        scene, small_cfg, device=dev, on_pass=lambda st: passes_seen.append(
+            (st["accum"].device.type, np.asarray(st["accum"]).shape)))
     small_counts = _cuda.launch_counts()
     print(f"[6 render_image] 320x180 64 spp in passes of 16: done "
-          f"{st_small['spp_done']}; kernel launch counts {small_counts}",
-          flush=True)
+          f"{st_small['spp_done']}; kernel launch counts {small_counts}; "
+          f"on_pass got {passes_seen}", flush=True)
     _check(small_counts["persist"] > 0 and st_small["spp_done"] == 64,
            "render_image did not run the kernel's pass loop")
+    _check(passes_seen == [("cpu", (180, 320, 3))] * 4,
+           "on_pass did not get a host copy of each pass's sum")
     _check(bool(np.isfinite(acc_np).all()), "non-finite flagship sums")
     _check(img.shape == (h, w, 3) and img_small.shape == (180, 320, 3),
            "image shapes")
@@ -1373,7 +1611,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall7 = time.perf_counter() - t0
     counts7 = _cuda.launch_counts()
-    passes7 = -(-spp7 // render.effective_spp_per_pass(c7, spp7, w7 * h7))
+    passes7 = -(-spp7 // render.effective_spp_per_pass(
+        c7, "megakernel", spp7, w7 * h7))
     acc7 = st7["accum"] / st7["spp_done"]
     print(f"[7 book3_cornell_box] {w7}x{h7} {spp7} spp (10x10 strata) depth "
           f"50 MIS through render_image: {wall7:.3f} s, "
@@ -1438,7 +1677,8 @@ def main() -> int:
     # full lane count and reduced spp
     s8, c8, integ8 = models.book2_cornell_box()
     w8, h8 = c8.image_width, c8.image_height
-    passes8 = -(-200 // render.effective_spp_per_pass(c8, 200, w8 * h8))
+    passes8 = -(-200 // render.effective_spp_per_pass(
+        c8, "wavefront", 200, w8 * h8))
     _cuda.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1535,7 +1775,9 @@ def main() -> int:
                     launches=r14["launches"],
                     launches_by_path={"flagship, sphere_kernel route":
                                       r14["launches"]},
-                    max_abs_err=max(k1_err, r14["err"]), ms=r14["ms"],
+                    max_abs_err=max(k1_err, r14["err"],
+                                    *(v[1] for v in k1_cases.values())),
+                    ms=r14["ms"],
                     plain_ms=r14["plain_ms"], bound_ms=r14["bound"],
                     bound_by=r14["by"], library_ms=None,
                     ms_shape=f"{r14['n_rays']} first-bounce rays x "
@@ -1558,12 +1800,24 @@ def main() -> int:
                     bound_ms=r9["k2_bound"], bound_by=r9["k2_by"],
                     library_ms=None, work=r9["k2_work"],
                     ms_shape=f"{r9['R9']} lanes x {r9['iters9']} "
-                             "iterations, the_next_week",
-                    plain_ms_shape=f"{r9['R9']} lanes x {r9['iters9']} "
-                                   "iterations, the_next_week",
+                             "iterations, the_next_week launch 119 of 237",
+                    plain_ms_shape=f"{r9['R9']} lanes x 8 iterations from "
+                                   "the same state",
+                    simt_efficiency=r9["k2_simt"],
+                    zero_state_ms=r9["k2_zero_ms"],
+                    zero_state_plain_ms=r9["k2_zero_plain_ms"],
+                    zero_state_bound_ms=r9["k2_zero_bound"],
+                    flagship_main_launch_ms=k2F["ms"],
+                    flagship_main_launch_bound_ms=k2F["bound"],
+                    flagship_main_launch_plain_ms=k2F["plain_ms"],
+                    flagship_main_launch_simt_efficiency=k2F["simt"],
+                    flagship_main_launch_work=k2F["work"],
+                    flagship_main_launch_shape=f"{RF} lanes x {itF} "
+                    "iterations, flagship launch 3 of 52 (plain: 8)",
                     flagship_ms=p_ms, flagship_plain_ms=p_plain_ms,
                     flagship_bound_ms=p_bound,
-                    flagship_shape=f"{RF} lanes x 8 iterations, flagship"),
+                    flagship_shape=f"{RF} lanes x 8 iterations from a "
+                                   "zeroed state, flagship"),
                dict(name="megakernel", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/megakernel.cu",
                     replaces="rustraytrace_tpu/ops/pallas_megakernel.py:2087",

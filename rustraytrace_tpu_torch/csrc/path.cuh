@@ -96,12 +96,21 @@ struct Params {
   int moving, has_checker, has_noise, has_image;
   uint32_t k0, k1;
   int sample_offset;
-  // [8] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
+  // [9] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
   // instances only; null otherwise
   unsigned long long* work;
 };
 
-constexpr int N_WORK = 8;
+constexpr int N_WORK = 9;
+
+// The cooperative leaf scan's T (intersect<BOOK2, true>, K2 only): a
+// cluster that at most this many lanes of a warp need is scanned by the
+// whole warp for each of them in turn.  Fixed from a sweep on the H100
+// (chip_measure.py --kernels, which builds with -DRTT_COOP_LANES=T).
+#ifndef RTT_COOP_LANES
+#define RTT_COOP_LANES 12
+#endif
+constexpr int COOP_LANES = RTT_COOP_LANES;
 
 // Per-thread work counts, added to Params::work once at the end.  The
 // kernels are instantiated with COUNT = false for every timed launch, where
@@ -109,7 +118,7 @@ constexpr int N_WORK = 8;
 // where a caller passes Params::work.
 template <bool COUNT>
 struct Work {
-  uint32_t n[N_WORK] = {0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t n[N_WORK] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   __device__ __forceinline__ void add(int k, int v) {
     if constexpr (COUNT) n[k] += (uint32_t)v;
   }
@@ -121,6 +130,22 @@ struct Work {
   __device__ __forceinline__ void noise() { add(5, 1); }
   __device__ __forceinline__ void texel() { add(6, 1); }
   __device__ __forceinline__ void quad_rows(int v) { add(7, v); }
+  // sphere rows as the warp issues them: a cluster's rows once for the
+  // lanes that run its scan together (those of the active mask whose box
+  // test passed), added by one of them; sphere_rows / (32 x this) is the
+  // SIMT efficiency of the leaf scans
+  __device__ __forceinline__ void warp_rows(bool need, int rows) {
+    if constexpr (COUNT) {
+      const unsigned m = __activemask();
+      if (__ballot_sync(m, need) && (threadIdx.x & 31) == __ffs(m) - 1)
+        add(8, rows);
+    }
+  }
+  // the same count where the whole warp takes the decision together (K2):
+  // one lane adds the row steps the warp issues for a cluster
+  __device__ __forceinline__ void warp_steps(int v) {
+    if ((threadIdx.x & 31) == 0) add(8, v);
+  }
   __device__ __forceinline__ void flush(const Params& P) const {
     if constexpr (COUNT) {
 #pragma unroll
@@ -240,6 +265,161 @@ __device__ __forceinline__ void scan_quads(const Params& P, int lo, int hi,
   }
 }
 
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int NO_ROW = 0x7fffffff;
+
+// The warp's lexicographic minimum of (t, row), in every lane: the least t
+// and the lowest row at it (an xor butterfly of five steps).
+__device__ __forceinline__ void warp_min_lex(float* t, int* row) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(FULL_MASK, *t, off);
+    const int orow = __shfl_xor_sync(FULL_MASK, *row, off);
+    if (ot < *t || (ot == *t && orow < *row)) {
+      *t = ot;
+      *row = orow;
+    }
+  }
+}
+
+// The warp-cooperative scan of sphere rows [lo, hi) for the lanes of
+// `need` (a ballot; the whole warp calls it): the ray of each needing lane
+// in turn is broadcast, lane k tests rows lo + k, lo + k + 32, ... with the
+// same sphere_root, keeping its first strict minimum, and the warp's
+// lexicographic minimum of (root, row) goes back to the needing lane, which
+// takes it if it is below its best t.  That minimum is the first row at the
+// least root, so the result is scan_spheres's bitwise.
+template <bool MV>
+__device__ __forceinline__ void scan_spheres_warp(
+    const Params& P, int lo, int hi, unsigned need, float tm, float ox,
+    float oy, float oz, float dx, float dy, float dz, float a, float inv_a,
+    float* bt, int* bi) {
+  const int lane = threadIdx.x & 31;
+  while (need) {
+    const int src = __ffs(need) - 1;
+    need &= need - 1;
+    const float rtm = MV ? __shfl_sync(FULL_MASK, tm, src) : 0.0f;
+    const float rox = __shfl_sync(FULL_MASK, ox, src);
+    const float roy = __shfl_sync(FULL_MASK, oy, src);
+    const float roz = __shfl_sync(FULL_MASK, oz, src);
+    const float rdx = __shfl_sync(FULL_MASK, dx, src);
+    const float rdy = __shfl_sync(FULL_MASK, dy, src);
+    const float rdz = __shfl_sync(FULL_MASK, dz, src);
+    const float ra = __shfl_sync(FULL_MASK, a, src);
+    const float rinv = __shfl_sync(FULL_MASK, inv_a, src);
+    float best = BIG;
+    int row = NO_ROW;
+    for (int s = lo + lane; s < hi; s += 32) {
+      const float4 g = P.geom[s];
+      float cx = g.x, cy = g.y, cz = g.z;
+      if constexpr (MV) {
+        const float4 v = P.gvel[s];
+        cx = cx + rtm * v.x;
+        cy = cy + rtm * v.y;
+        cz = cz + rtm * v.z;
+      }
+      bool ok;
+      const float root = sphere_root(cx, cy, cz, g.w, rox, roy, roz, rdx,
+                                     rdy, rdz, ra, rinv, &ok);
+      if (ok && root < best) {
+        best = root;
+        row = s;
+      }
+    }
+    warp_min_lex(&best, &row);
+    if (lane == src && best < *bt) {
+      *bt = best;
+      *bi = row;
+    }
+  }
+}
+
+// The same for box rows [lo, hi) (scan_boxes's test)
+__device__ __forceinline__ void scan_boxes_warp(const Params& P, int lo,
+                                                int hi, unsigned need,
+                                                float ox, float oy, float oz,
+                                                float ivx, float ivy,
+                                                float ivz, float* bt,
+                                                int* bi) {
+  const int lane = threadIdx.x & 31;
+  while (need) {
+    const int src = __ffs(need) - 1;
+    need &= need - 1;
+    const float rox = __shfl_sync(FULL_MASK, ox, src);
+    const float roy = __shfl_sync(FULL_MASK, oy, src);
+    const float roz = __shfl_sync(FULL_MASK, oz, src);
+    const float rix = __shfl_sync(FULL_MASK, ivx, src);
+    const float riy = __shfl_sync(FULL_MASK, ivy, src);
+    const float riz = __shfl_sync(FULL_MASK, ivz, src);
+    float best = BIG;
+    int row = NO_ROW;
+    for (int k = lo + lane; k < hi; k += 32) {
+      float t1, t2;
+      slab(P.btab + 8 * k, rox, roy, roz, rix, riy, riz, &t1, &t2);
+      const bool near_ok = t1 > T_MIN && t1 < T_MAX;
+      const float root = near_ok ? t1 : t2;
+      if (t1 < t2 && root > T_MIN && root < T_MAX && root < best) {
+        best = root;
+        row = k;
+      }
+    }
+    warp_min_lex(&best, &row);
+    if (lane == src && best < *bt) {
+      *bt = best;
+      *bi = row;
+    }
+  }
+}
+
+// One sphere cluster for the lanes of `need` (the warp's ballot of box
+// hits; `in_c` is this lane's bit): cooperatively when at most
+// COOP_LANES lanes need it, else each needing lane scans the rows itself
+// while the rest wait (the warp issues them once for all).  The branch is
+// uniform across the warp.
+template <bool BOOK2, class WorkT>
+__device__ __forceinline__ void cluster_warp(const Params& P, int c, bool mv,
+                                             bool in_c, unsigned need,
+                                             float tm, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, float a, float inv_a,
+                                             float* bt, int* bi, WorkT& W) {
+  const int lo = P.cls[c] * P.unroll, hi = P.cls[c + 1] * P.unroll;
+  const int k = __popc(need);
+  if (k <= COOP_LANES) {
+    if (in_c) W.sphere_rows(hi - lo);
+    W.warp_steps(k * ((hi - lo + 31) / 32));
+    if (BOOK2 && mv)
+      scan_spheres_warp<true>(P, lo, hi, need, tm, ox, oy, oz, dx, dy, dz, a,
+                              inv_a, bt, bi);
+    else
+      scan_spheres_warp<false>(P, lo, hi, need, tm, ox, oy, oz, dx, dy, dz,
+                               a, inv_a, bt, bi);
+  } else {
+    W.warp_steps(hi - lo);
+    if (in_c)
+      scan_cluster<BOOK2>(P, c, mv, tm, ox, oy, oz, dx, dy, dz, a, inv_a, bt,
+                          bi, W);
+  }
+}
+
+// One box cluster, as cluster_warp
+template <class WorkT>
+__device__ __forceinline__ void box_cluster_warp(const Params& P, int c,
+                                                 bool in_c, unsigned need,
+                                                 float ox, float oy, float oz,
+                                                 float ivx, float ivy,
+                                                 float ivz, float* bt,
+                                                 int* bi, WorkT& W) {
+  const int U = P.b_unroll;
+  const int lo = P.bcls[c] * U, hi = P.bcls[c + 1] * U;
+  if (__popc(need) <= COOP_LANES) {
+    if (in_c) W.box_rows(hi - lo);
+    scan_boxes_warp(P, lo, hi, need, ox, oy, oz, ivx, ivy, ivz, bt, bi);
+  } else if (in_c) {
+    scan_boxes(P, lo, hi, ox, oy, oz, ivx, ivy, ivz, bt, bi, W);
+  }
+}
+
 struct Hit {
   float t;  // best t, or BIG on a miss
   int si;   // sphere winner row, or -1
@@ -261,11 +441,20 @@ struct Hit {
 // full scan: an f32 root can lie past its cluster's box (the ground
 // sphere's, near its surface), and the box test then drops that hit.  The
 // plain twin runs the same cull.  (s, sample, b) key the media draws.
-template <bool BOOK2, class WorkT>
+//
+// COOP (K2) is the warp-level form, the counterpart of the TPU kernel's
+// tile-wide cull: the whole warp calls it, `live` says whether this lane
+// has a ray, and each sphere or box cluster's leaf rows go through
+// cluster_warp / box_cluster_warp on the warp's ballot of box hits.  The
+// cluster order and every lane's box tests and best t are those of the
+// per-lane form, so both give the same hit bitwise.  Without COOP, `live`
+// is true.
+template <bool BOOK2, bool COOP, class WorkT>
 __device__ inline Hit intersect(const Params& P, float tm, float ox,
                                 float oy, float oz, float dx, float dy,
                                 float dz, float a, float inv_a, uint32_t s,
-                                uint32_t sample, uint32_t b, WorkT& W) {
+                                uint32_t sample, uint32_t b, bool live,
+                                WorkT& W) {
   float bt = BIG;
   int bi = -1;
   // moving spheres: every cluster of a moving scene, except the leading
@@ -282,32 +471,63 @@ __device__ inline Hit intersect(const Params& P, float tm, float ox,
   if (P.n_clusters > 0) {
     if (P.n_sclusters > 1) {
       for (int sc = 0; sc < P.n_sclusters; ++sc) {
-        W.box();
-        if (!box_hit(P.sclb + 8 * sc, ox, oy, oz, ivx, ivy, ivz, bt))
+        bool in_s = false;
+        if (live) {
+          W.box();
+          in_s = box_hit(P.sclb + 8 * sc, ox, oy, oz, ivx, ivy, ivz, bt);
+        }
+        if constexpr (COOP) {
+          if (!__any_sync(FULL_MASK, in_s)) continue;
+        } else if (!in_s) {
           continue;
+        }
         const bool mv = moving && !(split && sc < P.n_ssc_static);
         for (int c = P.scls[sc]; c < P.scls[sc + 1]; ++c) {
-          W.box();
-          if (!box_hit(P.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt))
-            continue;
-          scan_cluster<BOOK2>(P, c, mv, tm, ox, oy, oz, dx, dy, dz, a, inv_a,
-                              &bt, &bi, W);
+          bool in_c = false;
+          if (in_s) {
+            W.box();
+            in_c = box_hit(P.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt);
+          }
+          if constexpr (COOP) {
+            const unsigned need = __ballot_sync(FULL_MASK, in_c);
+            if (need)
+              cluster_warp<BOOK2>(P, c, mv, in_c, need, tm, ox, oy, oz, dx,
+                                  dy, dz, a, inv_a, &bt, &bi, W);
+          } else {
+            W.warp_rows(in_c, (P.cls[c + 1] - P.cls[c]) * P.unroll);
+            if (in_c)
+              scan_cluster<BOOK2>(P, c, mv, tm, ox, oy, oz, dx, dy, dz, a,
+                                  inv_a, &bt, &bi, W);
+          }
         }
       }
     } else {
       for (int c = 0; c < P.n_clusters; ++c) {
-        W.box();
-        if (!box_hit(P.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt)) continue;
-        scan_cluster<BOOK2>(P, c, moving, tm, ox, oy, oz, dx, dy, dz, a,
-                            inv_a, &bt, &bi, W);
+        bool in_c = false;
+        if (live) {
+          W.box();
+          in_c = box_hit(P.clb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt);
+        }
+        if constexpr (COOP) {
+          const unsigned need = __ballot_sync(FULL_MASK, in_c);
+          if (need)
+            cluster_warp<BOOK2>(P, c, moving, in_c, need, tm, ox, oy, oz, dx,
+                                dy, dz, a, inv_a, &bt, &bi, W);
+        } else {
+          W.warp_rows(in_c, (P.cls[c + 1] - P.cls[c]) * P.unroll);
+          if (in_c)
+            scan_cluster<BOOK2>(P, c, moving, tm, ox, oy, oz, dx, dy, dz, a,
+                                inv_a, &bt, &bi, W);
+        }
       }
     }
-  } else if (moving) {
-    scan_spheres<true>(P, 0, P.n_rows, tm, ox, oy, oz, dx, dy, dz, a, inv_a,
-                       &bt, &bi, W);
-  } else {
-    scan_spheres<false>(P, 0, P.n_rows, tm, ox, oy, oz, dx, dy, dz, a, inv_a,
-                        &bt, &bi, W);
+  } else if (live) {
+    if (moving)
+      scan_spheres<true>(P, 0, P.n_rows, tm, ox, oy, oz, dx, dy, dz, a,
+                         inv_a, &bt, &bi, W);
+    else
+      scan_spheres<false>(P, 0, P.n_rows, tm, ox, oy, oz, dx, dy, dz, a,
+                          inv_a, &bt, &bi, W);
   }
   int boxi = -1;
   if constexpr (BOOK2) {
@@ -315,19 +535,29 @@ __device__ inline Hit intersect(const Params& P, float tm, float ox,
       const int U = P.b_unroll;
       if (P.n_bclusters > 1) {
         for (int c = 0; c < P.n_bclusters; ++c) {
-          W.box();
-          if (!box_hit(P.bclb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt))
-            continue;
-          scan_boxes(P, P.bcls[c] * U, P.bcls[c + 1] * U, ox, oy, oz, ivx,
-                     ivy, ivz, &bt, &boxi, W);
+          bool in_c = false;
+          if (live) {
+            W.box();
+            in_c = box_hit(P.bclb + 8 * c, ox, oy, oz, ivx, ivy, ivz, bt);
+          }
+          if constexpr (COOP) {
+            const unsigned need = __ballot_sync(FULL_MASK, in_c);
+            if (need)
+              box_cluster_warp(P, c, in_c, need, ox, oy, oz, ivx, ivy, ivz,
+                               &bt, &boxi, W);
+          } else if (in_c) {
+            scan_boxes(P, P.bcls[c] * U, P.bcls[c + 1] * U, ox, oy, oz, ivx,
+                       ivy, ivz, &bt, &boxi, W);
+          }
         }
-      } else {
+      } else if (live) {
         scan_boxes(P, 0, P.n_boxes, ox, oy, oz, ivx, ivy, ivz, &bt, &boxi,
                    W);
       }
     }
   }
   int qi = -1;
+  if (!live) return Hit{bt, bi, -1, boxi, -1};
   if (P.n_qclusters > 1) {
     for (int c = 0; c < P.n_qclusters; ++c) {
       W.box();
@@ -528,14 +758,16 @@ __device__ __forceinline__ void image_texel(const Params& P, float img,
   *b = tx[2];
 }
 
-// One bounce of a live lane (bounce_body, pallas_megakernel.py:1202-1771):
+// The shading half of one bounce of a live lane (bounce_body,
+// pallas_megakernel.py:1202-1771) given its closest hit H and a = |d|^2:
 // the path integrator, or with MIS the book-3 NEE/MIS estimator
 // (the_rest_of_your_life/camera.rs:184-254), whose isotropic lanes (a
 // medium's scatter or an Isotropic material) sample the uniform sphere.
 // `s` and `sample` key the draws.
 template <bool MIS, bool BOOK2, class WorkT>
-__device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
-                       WorkT& W) {
+__device__ __forceinline__ void shade(Lane& L, const Params& P, uint32_t s,
+                                      uint32_t sample, const Hit& H, float a,
+                                      WorkT& W) {
   const float ox = L.ox, oy = L.oy, oz = L.oz;
   const float dx = L.dx, dy = L.dy, dz = L.dz;
   float ax = L.ax, ay = L.ay, az = L.az;
@@ -544,11 +776,6 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
   const float b = L.b;
   const float4 u = uniforms4(s, sample, (uint32_t)b, STREAM_BOUNCE, P.k0,
                              P.k1);
-
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv_a = 1.0f / a;
-  const Hit H = intersect<BOOK2>(P, L.tm, ox, oy, oz, dx, dy, dz, a, inv_a, s,
-                                 sample, (uint32_t)b, W);
   const float t = H.t;
   const bool hit = t < BIG;
   // the final winner (see Hit)
@@ -988,6 +1215,19 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
   W.bounce();
 }
 
+// One bounce of a live lane: the closest hit (the per-lane intersect), then
+// shade.  `s` and `sample` key the draws.
+template <bool MIS, bool BOOK2, class WorkT>
+__device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
+                       WorkT& W) {
+  const float a = L.dx * L.dx + L.dy * L.dy + L.dz * L.dz;
+  const float inv_a = 1.0f / a;
+  const Hit H = intersect<BOOK2, false>(P, L.tm, L.ox, L.oy, L.oz, L.dx, L.dy,
+                                        L.dz, a, inv_a, s, sample,
+                                        (uint32_t)L.b, true, W);
+  shade<MIS, BOOK2>(L, P, s, sample, H, a, W);
+}
+
 // clamped pixel coordinates of a slot under the 32x32 screen swizzle
 __device__ __forceinline__ void slot_pixel(const Params& P, int s, float* px,
                                            float* py) {
@@ -1056,13 +1296,13 @@ __device__ __forceinline__ bool lane_has_work(const Lane& L, float spp_f) {
   return L.mid > 0.0f || L.done < spp_f;
 }
 
-// One iteration of a lane (pbody, pallas_megakernel.py:1904-1962): bank a
-// dead unbanked path, respawn an idle lane that has samples left, and run
-// one bounce of a live lane.
-template <bool MIS, bool BOOK2, class WorkT>
-__device__ __forceinline__ void lane_step(Lane& L, const Params& P,
-                                          uint32_t s, float px, float py,
-                                          WorkT& W) {
+// The first half of a lane's iteration (pbody, pallas_megakernel.py:
+// 1904-1962): bank a dead unbanked path and respawn an idle lane that has
+// samples left.  Returns the absolute sample index that keys the bounce.
+template <bool BOOK2>
+__device__ __forceinline__ uint32_t bank_respawn(Lane& L, const Params& P,
+                                                 uint32_t s, float px,
+                                                 float py) {
   const float spp_f = (float)P.spp;
   const bool fin = L.mid > 0.0f && L.alive <= 0.0f;
   L.sx = L.sx + (fin ? L.rx : 0.0f);
@@ -1076,7 +1316,37 @@ __device__ __forceinline__ void lane_step(Lane& L, const Params& P,
   L.rz = L.rz * finz;
   const uint32_t sample = (uint32_t)((int)L.done + P.sample_offset);
   if (L.mid <= 0.0f && L.done < spp_f) spawn<BOOK2>(L, P, s, sample, px, py);
+  return sample;
+}
+
+// One iteration of a lane: bank, respawn, and one bounce of a live lane.
+template <bool MIS, bool BOOK2, class WorkT>
+__device__ __forceinline__ void lane_step(Lane& L, const Params& P,
+                                          uint32_t s, float px, float py,
+                                          WorkT& W) {
+  const uint32_t sample = bank_respawn<BOOK2>(L, P, s, px, py);
   if (L.alive > 0.0f) bounce<MIS, BOOK2>(L, P, s, sample, W);
+}
+
+// The same iteration in a converged warp (K2): every lane of the warp calls
+// it, and `act` says whether this lane takes the step (it has work and is
+// within its bound).  The intersect is the warp-cooperative one, which a
+// lane without a live ray joins with its ballot bits clear; the lanes that
+// act compute what lane_step computes.
+template <bool MIS, bool BOOK2, class WorkT>
+__device__ __forceinline__ void lane_step_warp(Lane& L, const Params& P,
+                                               uint32_t s, float px,
+                                               float py, bool act,
+                                               WorkT& W) {
+  uint32_t sample = 0;
+  if (act) sample = bank_respawn<BOOK2>(L, P, s, px, py);
+  const bool live = act && L.alive > 0.0f;
+  const float a = L.dx * L.dx + L.dy * L.dy + L.dz * L.dz;
+  const float inv_a = 1.0f / a;
+  const Hit H = intersect<BOOK2, true>(P, L.tm, L.ox, L.oy, L.oz, L.dx, L.dy,
+                                       L.dz, a, inv_a, s, sample,
+                                       (uint32_t)L.b, live, W);
+  if (live) shade<MIS, BOOK2>(L, P, s, sample, H, a, W);
 }
 
 }  // namespace rtt

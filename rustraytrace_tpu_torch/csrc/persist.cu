@@ -15,51 +15,67 @@
 // is persist_iters, or with tile_bounds that of the lane's tile of
 // tile_lanes sorted positions (pallas_wavefront.py:692-714).
 //
-// Intersection walks the two-level SAH cluster hierarchy per thread (see
-// path.cuh): the TPU kernel culled a whole 4096-lane tile at once ("any lane
-// hits the box"), which is Mosaic control flow; a Hopper thread can branch
-// on its own ray.
+// Bound on this card: FP32 throughput of the sphere quadric loop.  The
+// TPU kernel culled a whole 4096-lane tile at once; a per-thread cull makes
+// a warp execute the leaf scans of every cluster any of its lanes needs,
+// with the other lanes masked.  So the design is warp-level:
 //
-// Bound on this card: FP32 throughput of the sphere quadric loop, with warp
-// divergence (threads of a warp visit different clusters and run different
-// path lengths) as the main loss; the tables (~20 KB) stay in L1/L2.  This
-// first version does nothing about either: no shared-memory staging, no
-// warp votes, no tuning of block size or iteration bound.
+// * Converged warps.  A warp loops while any of its lanes has work and is
+//   within its bound (__any_sync); a lane that is done, past its bound or
+//   beyond R rides along with its ballot bits clear, and never leaves the
+//   loop early.  Tile bounds are warp-uniform (tile_lanes % 32 == 0, which
+//   the wrapper checks).
+// * The cooperative leaf scan (intersect<BOOK2, true>, path.cuh): a sphere
+//   or box cluster that at most COOP_LANES lanes of the warp need is
+//   scanned by all 32 lanes for each of them in turn; above that, the
+//   needing lanes scan it themselves.  Both give the per-lane form's hit
+//   bitwise.
+// * Occupancy: blocks of 128 threads, and launch bounds that let the
+//   Book-1 path instance (the flagship's) keep six blocks an SM and the
+//   others four, each without spilling.
+// The scene tables (8-50 KB for the reference scenes) are read from global
+// memory: they stay in L1, and staging them in shared memory with bulk
+// copies measured no faster on the flagship or the final scene while its
+// table pointers took registers (PERF.md).
 #include "path.cuh"
 
 namespace {
 
 constexpr int N_STATE = 20;
+constexpr int BLOCK = 128;
 
 template <bool MIS, bool BOOK2, bool COUNT>
-__global__ void persist_kernel(float* __restrict__ st,
-                               const int* __restrict__ slot, int R,
-                               rtt::Params P, int persist_iters,
-                               const int* __restrict__ tile_bounds,
-                               int tile_lanes) {
+__global__ void __launch_bounds__(BLOCK, (MIS || BOOK2 || COUNT) ? 4 : 6)
+    persist_kernel(float* __restrict__ st, const int* __restrict__ slot,
+                   int R, rtt::Params P, int persist_iters,
+                   const int* __restrict__ tile_bounds, int tile_lanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  const int bound = tile_bounds ? tile_bounds[i / tile_lanes] : persist_iters;
+  const bool valid = i < R;
+  const int bound =
+      !valid ? 0 : (tile_bounds ? tile_bounds[i / tile_lanes] : persist_iters);
   float v[N_STATE];
 #pragma unroll
-  for (int k = 0; k < N_STATE; ++k) v[k] = st[(size_t)k * R + i];
+  for (int k = 0; k < N_STATE; ++k) v[k] = valid ? st[(size_t)k * R + i] : 0.0f;
   rtt::Lane L = {v[0],  v[1],  v[2],  v[3],  v[4],  v[5],  v[6],
                  v[7],  v[8],  v[9],  v[10], v[11], v[12], v[13],
                  v[14], v[15], v[16], v[17], v[18], v[19]};
-  const int s = slot[i];
+  const int s = valid ? slot[i] : 0;
   float px, py;
   rtt::slot_pixel(P, s, &px, &py);
   const float spp_f = (float)P.spp;
   rtt::Work<COUNT> W;
-  for (int it = 0; it < bound; ++it) {
-    if (!rtt::lane_has_work(L, spp_f)) break;
-    rtt::lane_step<MIS, BOOK2>(L, P, (uint32_t)s, px, py, W);
+  for (int it = 0;; ++it) {
+    const bool act = it < bound && rtt::lane_has_work(L, spp_f);
+    if (!__any_sync(rtt::FULL_MASK, act)) break;
+    rtt::lane_step_warp<MIS, BOOK2>(L, P, (uint32_t)s, px, py, act, W);
   }
-  const float out[N_STATE] = {L.tm, L.ox,    L.oy, L.oz,   L.dx, L.dy, L.dz,
-                              L.ax, L.ay,    L.az, L.rx,   L.ry, L.rz,
-                              L.alive, L.b, L.done, L.sx, L.sy, L.sz, L.mid};
+  if (valid) {
+    const float out[N_STATE] = {L.tm, L.ox,    L.oy, L.oz,   L.dx, L.dy, L.dz,
+                                L.ax, L.ay,    L.az, L.rx,   L.ry, L.rz,
+                                L.alive, L.b, L.done, L.sx, L.sy, L.sz, L.mid};
 #pragma unroll
-  for (int k = 0; k < N_STATE; ++k) st[(size_t)k * R + i] = out[k];
+    for (int k = 0; k < N_STATE; ++k) st[(size_t)k * R + i] = out[k];
+  }
   W.flush(P);
 }
 
@@ -67,13 +83,12 @@ template <bool MIS, bool BOOK2>
 static void launch(float* state, const int* slot, int R, const rtt::Params& P,
                    int persist_iters, const int* tile_bounds, int tile_lanes,
                    cudaStream_t st) {
-  const int block = 128;
-  const int grid = (R + block - 1) / block;
+  const int grid = (R + BLOCK - 1) / BLOCK;
   if (P.work != nullptr)
-    persist_kernel<MIS, BOOK2, true><<<grid, block, 0, st>>>(
+    persist_kernel<MIS, BOOK2, true><<<grid, BLOCK, 0, st>>>(
         state, slot, R, P, persist_iters, tile_bounds, tile_lanes);
   else
-    persist_kernel<MIS, BOOK2, false><<<grid, block, 0, st>>>(
+    persist_kernel<MIS, BOOK2, false><<<grid, BLOCK, 0, st>>>(
         state, slot, R, P, persist_iters, tile_bounds, tile_lanes);
 }
 

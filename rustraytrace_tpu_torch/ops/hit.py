@@ -16,6 +16,8 @@ plain twin of the quad test).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..scene import Scene
@@ -171,12 +173,45 @@ def sphere_hit_plain(o, d, time, sph_tab, quad_tab, moving: bool,
     return t_out, i_out
 
 
+def sphere_table_f4(sph_tab: torch.Tensor) -> torch.Tensor:
+    """float32 [2, N, 4]: the float4 planes K1 streams through shared
+    memory, the centers and r^2 (columns 0-3 of ``pack_sphere_table``),
+    then the velocities and a zero (columns 4-6, 0)."""
+    f4 = torch.zeros((2, sph_tab.shape[0], 4), dtype=torch.float32,
+                     device=sph_tab.device)
+    f4[0] = sph_tab[:, S_CX:S_R2 + 1]
+    f4[1, :, :3] = sph_tab[:, S_VX:S_VZ + 1]
+    return f4
+
+
+def check_hit_args(o, d, time, sph_tab, quad_tab) -> None:
+    """Raise unless the arguments have K1's types and shapes: o, d float32
+    [R, 3], time float32 [R], sph_tab float32 [N, 8], quad_tab float32
+    [Q, 32]."""
+    R = o.shape[0]
+    for t, name, shape in ((o, "o", (R, 3)), (d, "d", (R, 3)),
+                           (time, "time", (R,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected float32 of shape {shape}, "
+                             f"got {t.dtype} of shape {tuple(t.shape)}")
+    for t, name, cols in ((sph_tab, "sph_tab", S_COLS),
+                          (quad_tab, "quad_tab", Q_COLS)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols:
+            raise ValueError(f"{name}: expected float32 of shape (n, "
+                             f"{cols}), got {t.dtype} of shape "
+                             f"{tuple(t.shape)}")
+
+
 def sphere_hit(o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
                sph_tab: torch.Tensor, quad_tab: torch.Tensor,
-               moving: bool):
+               moving: bool, f4: torch.Tensor | None = None):
     """Closest hit of rays o, d [R, 3] (time [R]) over sph_tab [N, 8] and
     quad_tab [Q, 32] (Q may be 0).  Returns (t [R] f32, idx [R] i32).
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel, which reads the rays and writes its
+    results as float4s (16-byte aligned tensors); CPU tensors run the plain
+    version.  ``f4`` is ``sphere_table_f4(sph_tab)``, built here when not
+    given: a caller that scans one table many times builds it once."""
+    check_hit_args(o, d, time, sph_tab, quad_tab)
     if o.device.type == "cpu":
         return sphere_hit_plain(o, d, time, sph_tab, quad_tab, moving)
     R = o.shape[0]
@@ -185,10 +220,17 @@ def sphere_hit(o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
     _cuda.require(time, "time", torch.float32, (R,))
     _cuda.require(sph_tab, "sph_tab", torch.float32, (None, S_COLS))
     _cuda.require(quad_tab, "quad_tab", torch.float32, (None, Q_COLS))
+    for t, name in ((o, "o"), (d, "d"), (time, "time")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K1 reads float4s; need 16-byte "
+                             "alignment")
+    if f4 is None:
+        f4 = sphere_table_f4(sph_tab)
+    _cuda.require(f4, "f4", torch.float32, (2, sph_tab.shape[0], 4))
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     idx = torch.empty(R, dtype=torch.int32, device=o.device)
     _cuda.launch("sphere_hit", o.data_ptr(), d.data_ptr(), time.data_ptr(),
-                 sph_tab.data_ptr(), sph_tab.shape[0], quad_tab.data_ptr(),
+                 f4.data_ptr(), sph_tab.shape[0], quad_tab.data_ptr(),
                  quad_tab.shape[0], int(bool(moving)), t.data_ptr(),
                  idx.data_ptr(), R)
     return t, idx
@@ -208,13 +250,14 @@ def sphere_kernel_eligible(scene: Scene) -> bool:
 
 
 def sphere_kernel_tables(scene: Scene):
-    """(sphere table [N, 8], quad table [Q, 32]) that K1 reads on the
-    sphere_kernel route; Q is 0 for a scene without quads."""
+    """(sphere table [N, 8], quad table [Q, 32], the sphere table's float4
+    planes ``sphere_table_f4``) that K1 reads on the sphere_kernel route,
+    built once for every bounce; Q is 0 for a scene without quads."""
     sph = pack_sphere_table(scene)
-    if "quads" in scene.features:
-        return sph, pack_quad_table(scene)
-    return sph, torch.zeros((0, Q_COLS), dtype=torch.float32,
-                            device=sph.device)
+    quad = (pack_quad_table(scene) if "quads" in scene.features
+            else torch.zeros((0, Q_COLS), dtype=torch.float32,
+                             device=sph.device))
+    return sph, quad, sphere_table_f4(sph)
 
 
 def closest_hit_spheres(o, d, time, scene: Scene, *, u_media=None,
@@ -233,9 +276,10 @@ def closest_hit_spheres(o, d, time, scene: Scene, *, u_media=None,
     from .rng import cross, dot, sqrt
     from .textures import texture_value
 
-    sph_tab, quad_tab = tables if tables is not None else (
+    sph_tab, quad_tab, f4 = tables if tables is not None else (
         sphere_kernel_tables(scene))
-    hit_fn = hit_fn or sphere_hit
+    if hit_fn is None:
+        hit_fn = functools.partial(sphere_hit, f4=f4)
     t, idx = hit_fn(o.contiguous(), d.contiguous(), time.contiguous(),
                     sph_tab, quad_tab, "motion" in scene.features)
     S = sph_tab.shape[0]

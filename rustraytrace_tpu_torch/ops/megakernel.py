@@ -59,9 +59,13 @@ SPHERE_MAX_LEAF_BIG = 32
 SPHERE_BIG_N = 4096
 BOX_MAX_LEAF = 32
 
-# work counters of the kernels' COUNT instances (path_params ``work``)
+# work counters of the kernels' COUNT instances (path_params ``work``);
+# ``warp_sphere_rows`` counts the sphere rows a warp issues (a cluster's
+# rows once for the lanes that scan it together), so sphere_rows /
+# (32 x warp_sphere_rows) is the leaf scans' SIMT efficiency
 WORK_NAMES = ("bounces", "sphere_rows", "cluster_boxes", "box_rows",
-              "media_tests", "noise_evals", "texel_fetches", "quad_rows")
+              "media_tests", "noise_evals", "texel_fetches", "quad_rows",
+              "warp_sphere_rows")
 
 # joined sphere+material table columns (pallas_megakernel.py:83-94)
 J_CX, J_CY, J_CZ, J_R2 = 0, 1, 2, 3
@@ -765,7 +769,7 @@ def path_params(t: Prepared, seed: int, *, spp: int, max_depth: int,
                 sample_offset: int = 0,
                 work: torch.Tensor | None = None) -> _cuda.PathParams:
     """The C struct ``rtt::Params`` of a launch on ``t``'s tables.  ``work``
-    (int64 [8], optional) receives the launch's counts named by WORK_NAMES,
+    (int64 [9], optional) receives the launch's counts named by WORK_NAMES,
     added to what it holds; it selects the counting instance of the kernel,
     so a timed launch passes none."""
     if work is not None:

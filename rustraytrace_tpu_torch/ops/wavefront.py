@@ -1180,6 +1180,32 @@ def persist_step_plain(state: torch.Tensor, slot: torch.Tensor,
             max_depth=max_depth, sample_offset=sample_offset)
 
 
+def check_persist_args(state: torch.Tensor, slot: torch.Tensor,
+                       tables: Prepared, tile_bounds: torch.Tensor | None,
+                       tile_lanes: int) -> None:
+    """Raise unless the launch's arguments have the kernel's types and
+    shapes: state float32 [20, R], slot int32 [R], tile_bounds int32
+    [R / tile_lanes] with tile_lanes a multiple of 32 dividing R, so that
+    every warp's lanes share one bound."""
+    R = tables.n_lanes
+    for t, name, dtype, shape in ((state, "state", torch.float32,
+                                   (N_STATE, R)),
+                                  (slot, "slot", torch.int32, (R,))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} of shape {shape}, "
+                             f"got {t.dtype} of shape {tuple(t.shape)}")
+    if tile_bounds is None:
+        return
+    if tile_lanes <= 0 or tile_lanes % 32 or R % tile_lanes:
+        raise ValueError(f"tile_lanes {tile_lanes} must be a multiple of 32 "
+                         f"dividing {R} lanes")
+    if (tile_bounds.dtype != torch.int32
+            or tuple(tile_bounds.shape) != (R // tile_lanes,)):
+        raise ValueError(f"tile_bounds: expected int32 of shape "
+                         f"({R // tile_lanes},), got {tile_bounds.dtype} of "
+                         f"shape {tuple(tile_bounds.shape)}")
+
+
 def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
                  seed: int, *, persist_iters: int, spp: int, max_depth: int,
                  sample_offset: int = 0,
@@ -1191,6 +1217,7 @@ def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
     positions.  CUDA tensors launch ``csrc/persist.cu``; CPU tensors run
     ``persist_step_plain``.  ``work`` as in ``megakernel.path_params``
     (CUDA only)."""
+    check_persist_args(state, slot, tables, tile_bounds, tile_lanes)
     if state.device.type == "cpu":
         return persist_step_plain(state, slot, tables, seed,
                                   persist_iters=persist_iters, spp=spp,
@@ -1203,8 +1230,6 @@ def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
     _cuda.require(slot, "slot", torch.int32, (R,))
     tb_ptr = None
     if tile_bounds is not None:
-        if tile_lanes <= 0 or R % tile_lanes:
-            raise ValueError(f"tile_lanes {tile_lanes} must divide {R} lanes")
         _cuda.require(tile_bounds, "tile_bounds", torch.int32,
                       (R // tile_lanes,))
         tb_ptr = tile_bounds.data_ptr()

@@ -121,10 +121,11 @@ def resolve_backend(scene: Scene, integrator: str = "path",
     return "reference"
 
 
-def effective_spp_per_pass(cfg: RenderConfig, spp_total: int,
-                           n_pix: int, backend: str = "wavefront") -> int:
-    """Samples per pass.  ``cfg.spp_per_pass == 0`` means AUTO: on the
-    reference and sphere_kernel routes 16 (the JAX package's XLA rule:
+def effective_spp_per_pass(cfg: RenderConfig, backend: str, spp_total: int,
+                           n_pix: int) -> int:
+    """Samples per pass, with the JAX package's signature and argument
+    order (render.py:297 there).  ``cfg.spp_per_pass == 0`` means AUTO: on
+    the reference and sphere_kernel routes 16 (the JAX package's XLA rule:
     launches are not their cost, memory is), on the kernel routes samples
     folded into passes of up to 64 Mi rays (at most 1024 spp, at least
     32); an explicit value is honored exactly."""
@@ -234,7 +235,13 @@ def render_pass(scene: Scene, cam: CameraParams, seed: int, *, width: int,
     ``sample_offset + [0, spp)`` (stratified over a ``sqrt_spp`` grid when
     asked); returns the RGB radiance SUM [H, W, 3] as a float32 tensor on
     ``device``.  ``chunk`` is the reference routes' pixels per chunk;
-    ``stats`` receives the persist loop's counts (sorted route only)."""
+    ``stats`` receives the persist loop's counts (sorted route only).
+
+    ``backend`` defaults to ``"auto"``, where the JAX package's
+    ``render_pass`` defaults to ``"xla"``: here "auto" takes the kernel
+    route on a card and the plain twins on the CPU, so a call without a
+    backend runs the port's fast path; pass ``backend="reference"`` (or
+    ``"xla"``) for the JAX default's route."""
     from .ops import megakernel as mk
     from .ops import wavefront as wf
 
@@ -265,7 +272,9 @@ def render_image(scene: Scene, cfg: RenderConfig, *,
     ``accum_state`` from an earlier call resumes the accumulation.  A
     stratified config renders floor(sqrt(spp))^2 samples (render.py:351-353
     there).  ``chunk``: pixels per chunk on the reference routes (at most
-    the image, rounded up to 256)."""
+    the image, rounded up to 256).  ``on_pass``, when given, receives
+    {"accum": a CPU copy of the running sum, "spp_done": n} after every
+    pass."""
     dev = _device(device)
     backend = resolve_backend(scene, integrator, backend, dev)
     cam = derive_camera(cfg, device=dev)
@@ -281,7 +290,7 @@ def render_image(scene: Scene, cfg: RenderConfig, *,
                                 device=dev)
         done = int(accum_state["spp_done"])
     chunk = min(chunk, _ceil_to(h * w, 256))
-    per_pass = effective_spp_per_pass(cfg, spp_total, h * w, backend)
+    per_pass = effective_spp_per_pass(cfg, backend, spp_total, h * w)
     while done < spp_total:
         this = min(per_pass, spp_total - done)
         accum = accum + render_pass(
@@ -293,7 +302,9 @@ def render_image(scene: Scene, cfg: RenderConfig, *,
         if progress is not None:
             progress(done, spp_total)
         if on_pass is not None:
-            on_pass({"accum": accum, "spp_done": done})
+            # a host copy, as the JAX package hands over an array that
+            # np.asarray reads; made only for a callback
+            on_pass({"accum": accum.to("cpu", copy=True), "spp_done": done})
     accum_np = accum.cpu().numpy()
     return finalize_image(accum_np, done), {"accum": accum_np,
                                             "spp_done": done}

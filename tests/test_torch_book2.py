@@ -467,7 +467,7 @@ def test_main_path_shapes():
     w, h = cfg.image_width, cfg.image_height
     assert (w, h, cfg.samples_per_pixel, cfg.max_depth, integ) == (
         400, 400, 250, 4, "path")
-    assert render.effective_spp_per_pass(cfg, 250, w * h) == 250
+    assert render.effective_spp_per_pass(cfg, "wavefront", 250, w * h) == 250
     assert mk.active_primitive_count(scene) == 1409
     sort = wf.ray_sort_heuristic(scene, wf.slot_lane_count(w, h))
     assert sort and wf.image_route_iters(scene, sort) == 8
@@ -482,7 +482,8 @@ def test_main_path_shapes():
     assert (tables.n_quads, tables.n_media) == (1, 2)
     assert 0 < tables.n_ssc_static < tables.n_sclusters
     _, c9, _ = models.get_scene("the_next_week", scene_num=9)
-    assert render.effective_spp_per_pass(c9, 10000, 800 * 800) == 104
+    assert render.effective_spp_per_pass(c9, "wavefront", 10000,
+                                        800 * 800) == 104
     n9 = wf.slot_lane_count(800, 800)
     assert -(-n9 // 4096) * 4096 == 643_072
 

@@ -445,3 +445,125 @@ def test_sphere_kernel_route_matches_its_twin(cuda):
     p = render._render_pass_reference(scene, cam, 3, backend="sphere_kernel",
                                       hit_fn=hit.sphere_hit_plain, **kw)
     assert torch.equal(k, p)
+
+
+class _Stop(Exception):
+    pass
+
+
+def _loop_state(tables, seed, spp, depth, iters, launch, adaptive=()):
+    """The input of launch ``launch`` (from 1) of the sorted persist loop
+    ``wavefront._wavefront_pass_persist``, taken by a step that runs K2 for
+    the launches before it and stops the loop there: lanes mid-sample at
+    different depths, some finished, in sorted order, with the loop's tile
+    bounds."""
+    got = []
+
+    def step(state, slot, tables, seed, **kw):
+        if len(got) + 1 == launch:
+            got.append((state.clone(), slot.clone(), kw["tile_bounds"],
+                        kw["tile_lanes"]))
+            raise _Stop
+        got.append(None)
+        wf.persist_step(state, slot, tables, seed, **kw)
+
+    with pytest.raises(_Stop):
+        wf._wavefront_pass_persist(
+            tables, seed, 0, spp=spp, max_depth=depth, persist_iters=iters,
+            sort_rays=True, adaptive_bounds=adaptive, step=step)
+    return got[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,spp", [
+    ("book1_random_spheres", 1), ("book1_random_spheres", 4),
+    ("the_next_week", 1), ("the_next_week", 2), ("sphere_field_10k", 1)])
+def test_warp_persist_launch_matches_plain_step(cuda, name, spp):
+    """K2's converged warps from a mid-loop state: lanes that finish
+    mid-launch (spp 1), ragged warps of lanes at other depths, tiles with
+    other bounds, against the plain step bitwise."""
+    scene, cfg, _ = models.get_scene(name, dict(image_width=96))
+    image = "image" in scene.features
+    tables = mk.prepare_megakernel(
+        scene, derive_camera(cfg, "cpu"), width=96, height=cfg.image_height,
+        tile_rows=2 if image else 8, device=cuda)
+    depth = min(cfg.max_depth, 12)
+    state, slot, tb, tl = _loop_state(tables, 5, spp, depth, 3, 3,
+                                      (1, 3, 0.25) if image else ())
+    if tb is None:
+        tb = torch.tensor([1 + k % 5 for k in range(tables.n_lanes // tl)],
+                          dtype=torch.int32, device=cuda)
+    for bounds in (None, tb):
+        k, p = state.clone(), state.clone()
+        kw = dict(persist_iters=6, spp=spp, max_depth=depth,
+                  tile_bounds=bounds, tile_lanes=tl)
+        wf.persist_step(k, slot, tables, 5, **kw)
+        wf.persist_step_plain(p, slot, tables, 5, **kw)
+        assert torch.equal(k, p)
+        if spp == 1:  # lanes finish their sample during the launch
+            assert bool((p[wf.R_DONE] > state[wf.R_DONE]).any())
+
+
+def _hit_case(case, cuda):
+    """(o, d, time, sph_tab, quad_tab, moving) of a K1 case."""
+    n = {"ragged": 4097, "ragged_small": 1000}.get(case, 65536)
+    o, d, t = (x.to(cuda) for x in _rays(n, seed=7))
+    quad = torch.zeros((0, hit.Q_COLS), device=cuda)
+    moving = False
+    if case == "tiles":  # 10,001 spheres: ten ring tiles
+        scene = models.sphere_field_10k()[0]
+    elif case == "moving":
+        scene = models.book2_bouncing_spheres()[0]
+        moving = True
+    elif case == "quads":
+        scene = models.book2_cornell_smoke()[0]
+        quad = hit.pack_quad_table(scene).to(cuda)
+        rng = np.random.default_rng(7)
+        ob = rng.uniform(-50, 50, (n, 3)) + np.asarray([278, 278, -800])
+        db = rng.uniform(0, 555, (n, 3)) - ob
+        o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda)
+                for x in (ob, db))
+    else:
+        scene = models.book1_random_spheres()[0]
+    sph = hit.pack_sphere_table(scene).to(cuda)
+    if case == "ties":
+        # every row again at a later index: each hit ties exactly with
+        # its copy, and the first must win
+        sph = torch.cat([sph, sph])
+    return o, d, t, sph, quad, moving
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flagship", "tiles", "moving", "quads",
+                                  "ragged", "ragged_small", "ties"])
+def test_sphere_hit_ring_kernel_matches_plain(cuda, case):
+    """K1 against its twin, t and idx bitwise: a table of ten ring tiles,
+    moving spheres, quads, ray counts that are not a multiple of a block's
+    512 rays, and exact ties (the first row wins)."""
+    o, d, t, sph, quad, moving = _hit_case(case, cuda)
+    tk, ik = hit.sphere_hit(o, d, t, sph, quad, moving)
+    tp, ip = hit.sphere_hit_plain(o, d, t, sph, quad, moving)
+    assert int((ik >= 0).sum()) > o.shape[0] // 10
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
+    if case == "ties":
+        assert int(ik.max()) < sph.shape[0] // 2
+    if case == "quads":
+        assert int((ik >= sph.shape[0]).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_render_image_on_pass_gets_a_host_copy(cuda):
+    """On the card, on_pass receives a CPU copy that np.asarray reads."""
+    from rustraytrace_tpu_torch import render
+
+    scene, cfg, _ = models.book1_random_spheres(dict(
+        image_width=64, samples_per_pixel=4, spp_per_pass=2, max_depth=8))
+    seen = []
+
+    def grab(state):
+        assert state["accum"].device.type == "cpu"
+        seen.append(np.asarray(state["accum"]))
+
+    _, full = render.render_image(scene, cfg, on_pass=grab, device=cuda)
+    assert len(seen) == 2
+    np.testing.assert_array_equal(seen[-1], full["accum"])

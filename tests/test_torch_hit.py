@@ -105,3 +105,37 @@ def test_motion_and_quads_match_jax_interpret(name, moving, kw):
     _check(t_ref, i_ref, tq.numpy(), iq.numpy(), min_hits=1000)
     if has_quads:
         assert (iq.numpy() >= sph.shape[0]).sum() > 500  # quad winners
+
+
+@pytest.mark.parametrize("name", ["book1_random_spheres",
+                                  "book2_bouncing_spheres"])
+def test_float4_repack_equals_the_table_columns(name):
+    """K1's float4 planes carry columns 0-3 (center, r^2) and 4-6
+    (velocity) of the sphere table bit for bit, the fourth velocity word
+    zero; the bouncing spheres move."""
+    scene, _, _ = models.get_scene(name)
+    tab = hit.pack_sphere_table(scene)
+    f4 = hit.sphere_table_f4(tab)
+    assert f4.shape == (2, tab.shape[0], 4) and f4.is_contiguous()
+    bits = tab.view(torch.int32)
+    assert torch.equal(f4[0].view(torch.int32), bits[:, 0:4])
+    assert torch.equal(f4[1, :, :3].view(torch.int32), bits[:, 4:7])
+    assert torch.equal(f4[1, :, 3], torch.zeros(tab.shape[0]))
+    moving = bool((tab[:, hit.S_VX:hit.S_VZ + 1] != 0).any())
+    assert moving == (name == "book2_bouncing_spheres")
+    # the sphere_kernel route builds the planes once, with its tables
+    sph, _, planes = hit.sphere_kernel_tables(scene)
+    assert torch.equal(sph, tab) and torch.equal(planes, f4)
+
+
+def test_sphere_hit_rejects_bad_arguments():
+    scene, _, _ = models.book1_random_spheres()
+    sph = hit.pack_sphere_table(scene)
+    quad = torch.zeros((0, hit.Q_COLS))
+    o, d, t = (torch.from_numpy(x) for x in _rays(64, 1))
+    hit.sphere_hit(o, d, t, sph, quad, False)
+    for args in ((o.double(), d, t, sph, quad), (o, d[:, :2], t, sph, quad),
+                 (o, d, t[:32], sph, quad), (o, d, t, sph[:, :7], quad),
+                 (o, d, t, sph, quad.int())):
+        with pytest.raises(ValueError):
+            hit.sphere_hit(*args, False)

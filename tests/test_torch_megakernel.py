@@ -103,7 +103,7 @@ def test_routes_follow_the_jax_package():
     assert wf.sorted_persist_route(flagship, 1200, 675)
     assert not wf.sorted_persist_route(flagship, 3840, 2160)  # > 2 Mi lanes
     assert render.effective_spp_per_pass(
-        models.book3_cornell_box()[1], 100, 600 * 600) == 100
+        models.book3_cornell_box()[1], "megakernel", 100, 600 * 600) == 100
 
 
 def test_mis_routes_to_the_megakernel_on_cuda(monkeypatch):

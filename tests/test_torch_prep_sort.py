@@ -99,7 +99,8 @@ def test_routing_predicates_equal_jax(monkeypatch, name, width):
         for per in (0, 7, 64):
             c = cfg.replace(spp_per_pass=per)
             jc = jcfg.replace(spp_per_pass=per)
-            assert (render.effective_spp_per_pass(c, spp, width * h)
+            assert (render.effective_spp_per_pass(c, "wavefront", spp,
+                                                  width * h)
                     == jrender.effective_spp_per_pass(
                         jc, "wavefront", spp, width * h))
 
@@ -157,3 +158,32 @@ def test_morton8_equal_jax():
     np.testing.assert_array_equal(
         wf._morton8(torch.from_numpy(q)).numpy(),
         np.asarray(jwf._morton8(jnp.asarray(q))))
+
+
+@pytest.mark.parametrize("backend", ["wavefront", "megakernel", "xla"])
+def test_effective_spp_per_pass_takes_the_jax_argument_order(backend):
+    """Called positionally, (cfg, backend, spp_total, n_pix), as
+    rustraytrace_tpu/parallel/megakernel.py:184 calls the JAX function."""
+    for w, spp, per in ((400, 100, 0), (1200, 1024, 0), (3840, 1000, 0),
+                        (16, 100000, 0), (400, 100, 4), (3840, 1000, 8)):
+        over = dict(image_width=w, spp_per_pass=per)
+        _, cfg, _ = models.book1_three_spheres(over)
+        _, jcfg, _ = jmodels.book1_three_spheres(over)
+        n = w * cfg.image_height
+        assert (render.effective_spp_per_pass(cfg, backend, spp, n)
+                == jrender.effective_spp_per_pass(jcfg, backend, spp, n))
+
+
+def test_render_pass_defaults_to_auto_where_jax_defaults_to_xla():
+    """The port's render_pass routes by itself ("auto": the kernels on a
+    card, their plain twins on the CPU); the JAX package's defaults to its
+    reference route "xla", which the port takes when asked by name."""
+    import inspect
+
+    assert inspect.signature(render.render_pass).parameters[
+        "backend"].default == "auto"
+    assert inspect.signature(jrender.render_pass).parameters[
+        "backend"].default == "xla"
+    scene, _, _ = models.book1_random_spheres()
+    assert render.resolve_backend(scene, "path", device="cpu") == "plain"
+    assert render.resolve_backend(scene, "path", "xla", "cpu") == "reference"

@@ -483,6 +483,26 @@ def test_reference_route_resumes():
     np.testing.assert_array_equal(resumed["accum"], full["accum"])
 
 
+def test_on_pass_gets_a_host_copy():
+    """render_image hands on_pass a CPU copy of the running sum, which
+    np.asarray reads as it reads the JAX package's array; changing it
+    leaves the render alone."""
+    scene, cfg, _ = models.book1_three_spheres(dict(
+        image_width=16, samples_per_pixel=4, max_depth=4, spp_per_pass=2))
+    seen = []
+
+    def grab(state):
+        seen.append(np.asarray(state["accum"]).copy())
+        assert state["accum"].device.type == "cpu"
+        state["accum"].zero_()
+
+    _, full = render.render_image(scene, cfg, backend="reference",
+                                  on_pass=grab, device="cpu")
+    assert len(seen) == 2 and seen[1].shape == (9, 16, 3)
+    np.testing.assert_array_equal(seen[1], full["accum"])
+    assert float(seen[0].sum()) > 0
+
+
 def test_formerly_raising_scenes_route_and_render_on_auto():
     """An image-textured medium (path) takes the sphere_kernel route and a
     'mis' scene without NEE lights the reference route, as the JAX package
