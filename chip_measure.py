@@ -40,15 +40,33 @@ numbers behind PERF.md's findings:
    rays; then one profiled call of each of the three main paths (the
    flagship, the final scene, the sphere_kernel flagship).
 
+10. the megakernels K3 and K4 on their cells (``--megakernels`` runs only
+   this item): K3 at the 4K flagship pass, on the Book-3 Cornell box and
+   on three 400x225 Book-2 scenes and on the Cornell smoke, K4 on the
+   Book-3 box; per cell, twice, the timed kernel, then the counting
+   instance's work, bound, SIMT efficiency of the leaf scans, lane-use
+   share and tail share (each warp's start and finish on the device
+   clock); the registers of every K3 and K4 instance and a census of their
+   SASS by instruction class;
+11. the sweeps of the megakernels' design (``--mega-sweep`` runs only this
+   item): one build and process per setting of ``MEGA_SWEEP`` (every
+   instance forced to the cooperative or the per-lane form, the
+   cooperative threshold T, block 128 or 256, the launch bounds' resident
+   threads), each timing K3 and K4 on ``MEGA_SWEEP_CELLS`` and held
+   bitwise to the default build's sums.
+
     python3 chip_measure.py [--reps 3] [--spp 1024] [--heads] [--reference]
-                            [--kernels]
+                            [--kernels] [--megakernels] [--mega-sweep]
     python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
 ``chip_smoke.py`` drives it.  ``--ab DIR`` instead times the flagship
 (``render_pass`` and one K2 launch), the Book-3 Cornell box
-(``render_image`` and one K3 pass), the 4K flagship pass
-(``render_pass``, K3) and the final scene (``render_image``) with the
+(``render_image``, one K3 and one K4 pass), the 4K flagship pass
+(``render_pass`` and its K3 pass), the three 400x225 Book-2 scenes of
+K3's route (their K3 passes; ``book2_perlin_spheres``'s ``render_image``
+too), the final scene (``render_image``),
+K2's main-path launches (with their work counts) and K1 with the
 package of the checkout DIR
 and with this one, in the order DIR, this, this, DIR, each in its own
 process, and prints one JSON line per process.  Prints the card's name,
@@ -66,8 +84,10 @@ import time
 
 
 def _ab_child(reps: int) -> dict:
-    """Warm timings of the flagship, the Book-3 Cornell box, the 4K pass,
-    the final scene, K2's main-path launches, K1 at its route's shape and
+    """Warm timings of the flagship, the Book-3 Cornell box (K3 and K4),
+    the 4K pass (end to end and K3 alone), the three 400x225 Book-2 scenes
+    on K3 (``book2_perlin_spheres`` end to end too), the final scene, K2's
+    main-path launches with their work counts, K1 at its route's shape and
     the sphere_kernel route, with the package on sys.path; uses only calls
     the earlier slices have too."""
     import torch
@@ -125,11 +145,32 @@ def _ab_child(reps: int) -> dict:
         stratified=True, sqrt_spp=10, device=dev)
     out["book3_k3_pass_ms"] = event_ms(
         lambda: mk.respawn_pass(tab3, c3.seed, 0, 100, 50))
+    out["book3_k4_pass_ms"] = event_ms(
+        lambda: mk.mono_pass(tab3, c3.seed, 0, 100, 50))
+    del tab3
     s4, c4, _ = models.book1_random_spheres(dict(image_width=3840))
     cam4 = derive_camera(c4, device=dev)
     out["flagship_4k_render_pass_s"] = walls(lambda: render.render_pass(
         s4, cam4, c4.seed, width=3840, height=2160, spp=16, max_depth=50,
         device=dev))
+    tab4 = mk.prepare_megakernel(s4, cam4, width=3840, height=2160,
+                                 tile_rows=mk.respawn_tile_rows(s4),
+                                 device=dev)
+    out["flagship_4k_k3_pass_ms"] = event_ms(
+        lambda: mk.respawn_pass(tab4, c4.seed, 0, 16, 50))
+    del tab4
+    for name in ("book2_checkered_spheres", "book2_perlin_spheres",
+                 "book2_simple_light"):
+        sp, cp, _ = models.get_scene(name)
+        if name == "book2_perlin_spheres":
+            out["perlin_render_image_s"] = walls(lambda: render.render_image(
+                sp, cp, device=dev))
+        tabp = mk.prepare_megakernel(
+            sp, derive_camera(cp, device=dev), width=400, height=225,
+            tile_rows=mk.respawn_tile_rows(sp), device=dev)
+        out[f"{name}_k3_pass_ms"] = event_ms(
+            lambda: mk.respawn_pass(tabp, cp.seed, 0, 100, 50))
+        del tabp
     s9, c9, _ = models.get_scene("the_next_week")
     out["final_render_image_s"] = walls(lambda: render.render_image(
         s9, c9, device=dev))
@@ -137,10 +178,19 @@ def _ab_child(reps: int) -> dict:
     # K2 at the main paths' own launches and K1 at its route's shape, with
     # this script's helpers (chip_smoke.py beside it) on either package
     smoke = _smoke()
-    out["flagship_k2_launch3_ms"] = smoke._k2_launch_ms(
-        smoke._k2_main_launch(sf, cf, "path", dev, 3, spp=1024), reps=reps)
-    out["final_k2_launch119_ms"] = smoke._k2_launch_ms(
-        smoke._k2_main_launch(s9, c9, "path", dev, 119, spp=250), reps=reps)
+
+    def k2(loop) -> tuple:
+        """(ms, the COUNT instance's work) of a K2 main-path launch."""
+        tables, seed, state, slot, kw = loop
+        work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                           device=dev)
+        wf.persist_step(state.clone(), slot, tables, seed, work=work, **kw)
+        return smoke._k2_launch_ms(loop, reps=reps), work.tolist()[:9]
+
+    (out["flagship_k2_launch3_ms"], out["flagship_k2_launch3_work"]) = k2(
+        smoke._k2_main_launch(sf, cf, "path", dev, 3, spp=1024))
+    (out["final_k2_launch119_ms"], out["final_k2_launch119_work"]) = k2(
+        smoke._k2_main_launch(s9, c9, "path", dev, 119, spp=250))
     args = smoke._k1_route_args(dev)
     # the float4 planes, built once a pass on the route (earlier slices
     # have none)
@@ -481,6 +531,201 @@ def _kernels(reps: int) -> None:
         _profiled(label, fn)
 
 
+# the megakernels' cells: label, kernel, scene, overrides, spp, table flags
+MK_CELLS = (
+    ("K3 flagship 4K pass 3840x2160 16 spp", "megakernel",
+     "book1_random_spheres", dict(image_width=3840), 16, {}),
+    ("K3 book3_cornell_box 600x600 100 spp MIS", "megakernel",
+     "book3_cornell_box", None, 100,
+     dict(mis=True, stratified=True, sqrt_spp=10)),
+    ("K3 book2_checkered_spheres 400x225 100 spp", "megakernel",
+     "book2_checkered_spheres", None, 100, {}),
+    ("K3 book2_perlin_spheres 400x225 100 spp", "megakernel",
+     "book2_perlin_spheres", None, 100, {}),
+    ("K3 book2_simple_light 400x225 100 spp", "megakernel",
+     "book2_simple_light", None, 100, {}),
+    ("K3 book2_cornell_smoke 600x600 200 spp", "megakernel",
+     "book2_cornell_smoke", None, 200, {}),
+    ("K4 book3_cornell_box 600x600 100 spp MIS", "mono",
+     "book3_cornell_box", None, 100,
+     dict(mis=True, stratified=True, sqrt_spp=10)),
+)
+
+# SASS opcode classes of the census (the opcode before its first dot)
+SASS_CLASSES = {
+    "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+             "FCHK", "FRND", "FADD32I", "FMUL32I", "FFMA32I", "FSWZADD"},
+    "mufu": {"MUFU"},
+    "convert": {"F2I", "I2F", "F2F", "I2FP", "F2IP"},
+    "int_philox": {"IMAD", "IADD3", "IMUL", "LOP3", "SHF", "SHL", "SHR",
+                   "LEA", "ISETP", "IABS", "IMNMX", "SEL", "PRMT", "POPC",
+                   "FLO", "BREV", "IADD", "LOP", "VIADD", "IMAD32I",
+                   "IADD32I", "LOP32I", "ISCADD", "BMSK", "SGXT"},
+    "memory": {"LDG", "STG", "LDS", "STS", "LDC", "LD", "ST", "LDL", "STL",
+               "ATOM", "ATOMG", "ATOMS", "RED", "ULDC", "LDGSTS",
+               "CCTL"},
+    "warp": {"SHFL", "VOTE", "VOTEU", "MATCH", "WARPSYNC", "BAR", "REDUX"},
+    "control": {"BRA", "BSSY", "BSYNC", "EXIT", "RET", "CALL", "BREAK",
+                "BMOV", "YIELD", "NOP", "JMP", "BRX", "JMX", "KILL",
+                "BPT"},
+}
+
+
+def _sass_census(lib: str, kernels=("respawn_kernel", "mono_kernel")
+                 ) -> dict:
+    """Static SASS instruction counts by class (SASS_CLASSES; the rest
+    "move_other": moves, predicates, uniform datapath, special registers)
+    of each timed instance of ``kernels`` in the built library
+    (``cuobjdump -sass``)."""
+    import re
+
+    from rustraytrace_tpu_torch.ops import _cuda
+
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    out, name = {}, None
+    ins = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)")
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            flags = re.findall(r"Lb([01])E", fn)
+            base = next((k for k in kernels if k in fn), None)
+            name = None
+            if base and len(flags) >= 3 and flags[2] == "0":
+                coop = "" if len(flags) == 3 else (
+                    ", coop" if flags[3] == "1" else ", lane")
+                name = (f"{base}<{'mis' if flags[0] == '1' else 'path'}, "
+                        f"{'book2' if flags[1] == '1' else 'base'}{coop}>")
+                out[name] = {"total": 0}
+            continue
+        m = ins.search(ln) if name else None
+        if m:
+            op = m.group(1)
+            cls = next((c for c, ops in SASS_CLASSES.items() if op in ops),
+                       "move_other")
+            out[name][cls] = out[name].get(cls, 0) + 1
+            out[name]["total"] += 1
+    return out
+
+
+def _megakernels(reps: int) -> None:
+    """Item 10: K3 and K4 on MK_CELLS (``chip_smoke._mk_profile``), their
+    registers and SASS census."""
+    import rustraytrace_tpu_torch
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+
+    smoke = _smoke()  # a run may take another tree's package (-P)
+    # a build of its own, so that ptxas reports every instance
+    _cuda.BUILD_DIR = os.path.join(_cuda.BUILD_DIR, "measure")
+    _cuda.library()
+    print(json.dumps({"item": "megakernel registers",
+                      "package": rustraytrace_tpu_torch.__file__, **{
+                          k: v for k, v in smoke._registers(
+                              _cuda.build_info["log"]).items()
+                          if k.startswith(("respawn", "mono"))}}),
+          flush=True)
+    print(json.dumps({"item": "megakernel SASS census",
+                      **_sass_census(_cuda.build_info["path"])}),
+          flush=True)
+    for label, kind, tab, cfg, spp in _mk_cells():
+        r, again = (smoke._mk_profile(kind, tab, cfg.seed, spp,
+                                      cfg.max_depth, reps=reps)
+                    for _ in range(2))
+        coop = mk.cluster_cull(tab) if hasattr(mk, "cluster_cull") else None
+        print(json.dumps({"item": "megakernel cell", "cell": label,
+                          "lanes": tab.n_lanes, "coop": coop,
+                          "ms_again": again["ms"], **r}), flush=True)
+        del tab
+
+
+def _mk_cells(labels=None):
+    """(label, kernel, tables, config, spp) of each of MK_CELLS (those of
+    ``labels`` only, where given), the tables prepared as the main path
+    prepares them."""
+    import torch
+
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+
+    dev = torch.device("cuda")
+    for label, kind, name, over, spp, flags in MK_CELLS:
+        if labels is not None and label not in labels:
+            continue
+        scene, cfg, _ = models.get_scene(name, over)
+        tab = mk.prepare_megakernel(
+            scene, derive_camera(cfg, device=dev), width=cfg.image_width,
+            height=cfg.image_height, tile_rows=mk.respawn_tile_rows(scene),
+            device=dev, **flags)
+        yield label, kind, tab, cfg, spp
+
+
+# the sweeps of the megakernels' design (csrc/megakernel.cuh): every
+# instance forced to the cooperative form (32 slots a warp in K3, K2's leaf
+# scan) or the per-lane one (a slot a lane in K3, the per-lane bounce), the
+# cooperative threshold T, the block size and the resident threads an SM
+# that the launch bounds ask for
+MEGA_SWEEP = ((), ("-DRTT_MEGA_FORCE_COOP=1",), ("-DRTT_MEGA_FORCE_COOP=0",),
+              ("-DRTT_COOP_LANES=8",), ("-DRTT_COOP_LANES=16",),
+              ("-DRTT_MEGA_BLOCK=256",), ("-DRTT_MEGA_MIN_THREADS=512",),
+              ("-DRTT_MEGA_MIN_THREADS=1024",))
+MEGA_SWEEP_CELLS = ("K3 flagship 4K pass 3840x2160 16 spp",
+                    "K3 book3_cornell_box 600x600 100 spp MIS",
+                    "K3 book2_checkered_spheres 400x225 100 spp",
+                    "K3 book2_cornell_smoke 600x600 200 spp",
+                    "K4 book3_cornell_box 600x600 100 spp MIS")
+
+
+def _mega_sweep_child(flags: list, reps: int) -> dict:
+    """MEGA_SWEEP_CELLS with the library built with ``flags``: each cell's
+    timed kernel (ms) and a checksum of its sums (the parent compares it
+    with the default build's), and the registers of K3 and K4."""
+    import hashlib
+
+    from chip_smoke import _cuda_ms, _registers
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+
+    _cuda.NVCC_FLAGS = _cuda.NVCC_FLAGS + tuple(flags)
+    # a build of its own, so that ptxas reports every instance
+    _cuda.BUILD_DIR = os.path.join(_cuda.BUILD_DIR, "sweep")
+    out = {"flags": flags}
+    for label, kind, tab, cfg, spp in _mk_cells(MEGA_SWEEP_CELLS):
+        fn = mk.respawn_pass if kind == "megakernel" else mk.mono_pass
+        run = lambda: fn(tab, cfg.seed, 0, spp, cfg.max_depth)  # noqa
+        sums = run().cpu().numpy()
+        out[label] = dict(ms=_cuda_ms(run, reps), sums_sha=hashlib.sha256(
+            sums.tobytes()).hexdigest()[:16])
+        del tab
+    out["registers"] = {k: v for k, v in _registers(
+        _cuda.build_info["log"]).items() if k.startswith(("respawn", "mono"))
+        and "count" not in k}
+    return out
+
+
+def _mega_sweep(reps: int) -> None:
+    """The MEGA_SWEEP, one process and build per setting; every setting's
+    sums must equal the default build's bitwise."""
+    first = None
+    for flags in MEGA_SWEEP:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--mega-sweep-child",
+             json.dumps(list(flags)), "--reps", str(reps)],
+            capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"sweep child {flags} failed:\n{res.stdout}"
+                               f"\n{res.stderr}")
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        sha = {k: v["sums_sha"] for k, v in r.items()
+               if isinstance(v, dict) and "sums_sha" in v}
+        first = first or sha
+        r["sums_equal_default"] = sha == first
+        print(json.dumps({"item": "megakernel sweep", **r}), flush=True)
+
+
 def _ab(parent: str, reps: int) -> int:
     """Run _ab_child with the package of ``parent`` and of this checkout,
     in turns (parent, change, change, parent), one process each."""
@@ -515,6 +760,12 @@ def main() -> int:
                     help="run item 8 only")
     ap.add_argument("--kernels", action="store_true",
                     help="run item 9 only")
+    ap.add_argument("--megakernels", action="store_true",
+                    help="run item 10 only")
+    ap.add_argument("--mega-sweep", action="store_true",
+                    help="run item 11 only")
+    ap.add_argument("--mega-sweep-child", metavar="FLAGS",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--ab-child", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--sweep-child", type=int, metavar="T",
@@ -528,6 +779,10 @@ def main() -> int:
         return 0
     if args.sweep_child is not None:
         print(json.dumps(_sweep_child(args.sweep_child, args.reps)))
+        return 0
+    if args.mega_sweep_child is not None:
+        print(json.dumps(_mega_sweep_child(
+            json.loads(args.mega_sweep_child), args.reps)))
         return 0
     from rustraytrace_tpu_torch import models, render
     from rustraytrace_tpu_torch.config import derive_camera
@@ -548,6 +803,12 @@ def main() -> int:
         return 0
     if args.kernels:
         _kernels(args.reps)
+        return 0
+    if args.megakernels:
+        _megakernels(args.reps)
+        return 0
+    if args.mega_sweep:
+        _mega_sweep(args.reps)
         return 0
     dev = torch.device("cuda")
     spp, depth = args.spp, 50

@@ -29,13 +29,19 @@ MIS and quads, 4c K2 at the flagship's third 128-iteration launch (timed
 from copies of the loop state, its bound and SIMT efficiency, 8
 iterations vs the twin), 5 sort invariance, 6 flagship (and
 ``render_image``'s ``on_pass`` getting a host copy), 7 Book-3 Cornell box
-on K3, 8 other K3 routes and the two-level cluster cull, 9 the final scene
+on K3 (timed, with the counting instance's bound, lane-use and tail
+shares), 8 other K3 routes: the Book-2 Cornell box, the 4K pass (K3 timed,
+its bound, SIMT efficiency of the leaf scans, lane-use and tail shares)
+and the two-level cluster cull (a one-block grid == the full grid, K3 and
+K4), 9 the final scene
 (one K2 launch vs the twin, launch 119 of 237 with its tile bounds timed
 and vs the twin, sorted with tile bounds == unsorted == K3, the main path,
 a 104-spp pass of scene 9), every other Book-2 scene and
-``sphere_field_10k`` at its own config (and its third K2 launch), and a
+``sphere_field_10k`` at its own config (and its third K2 launch; K3 timed
+on the three 400x225 scenes of its route), and a
 MIS scene with the Book-2 features; 10 K4 (the Book-3 path,
-== K3 bitwise at full configuration, == its twin, the Cornell smoke); 11
+== K3 bitwise at full configuration, == its twin, timed with its
+registers and lane-use share, the Cornell smoke); 11
 K5 (the final-scene path, == the persist render bitwise, one launch vs the
 twin at full lanes, earth); 12 SAH quad clusters (1,024 quads, camera
 inside); 13 the MIS isotropic branch (the smoke scene); 14 the sphere_kernel
@@ -109,6 +115,9 @@ def _rays(n: int, seed: int):
 
 
 FLAGSHIP_SPP = 1024  # one pass, as the JAX package's bench.py runs it
+# the 400x225 Book-2 scenes whose main path is K3 (timed in phase 9)
+K3_CELLS_400 = ("book2_checkered_spheres", "book2_perlin_spheres",
+                "book2_simple_light")
 
 # Least-time bounds: the larger of the FP32
 # operations over 67 TFLOP/s and the bytes over 3.35 TB/s of an H100 SXM at
@@ -139,11 +148,11 @@ def _path_ops(work, tables) -> float:
     """Operations of a path-tracer launch from its work counters
     (ops/megakernel.py WORK_NAMES: bounces, sphere rows tested, cluster
     boxes tested, box rows tested, media free flights, Perlin noise
-    evaluations, texel fetches, quad rows tested; the ninth, the sphere
-    rows as warps issue them, measures SIMT efficiency, not work) and its
-    tables."""
+    evaluations, texel fetches, quad rows tested; the rest, the sphere
+    rows as warps issue them and the lane and warp iterations, measure
+    SIMT efficiency, not work) and its tables."""
     (bounces, spheres, boxes, box_rows, media, noise, texels,
-     quads, _) = (int(v) for v in work.tolist())
+     quads) = (int(v) for v in work.tolist()[:8])
     per_bounce = OPS["path_bounce"]
     if tables.mis:
         kinds = [int(k) for k in tables.ltab[:tables.n_lights, 0].tolist()]
@@ -162,6 +171,34 @@ def _work(work) -> dict:
     from rustraytrace_tpu_torch.ops.megakernel import WORK_NAMES
 
     return dict(zip(WORK_NAMES, (int(v) for v in work.tolist())))
+
+
+def _mk_profile(kind: str, tables, seed: int, spp: int, depth: int, *,
+                reps: int, **kw) -> dict:
+    """K3 (``kind`` "megakernel") or K4 ("mono") on ``tables`` (``kw``:
+    the launch's other arguments): device ms of the timed instance over
+    ``reps`` launches, then one launch of the counting instance: its work, bound,
+    the SIMT efficiency of its leaf scans (sphere_rows / (32 x
+    warp_sphere_rows)), its lane-use share (lane_steps / (32 x
+    warp_iters)) and, from each warp's start and finish, its tail share
+    (``megakernel.tail_share``)."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+
+    fn = mk.respawn_pass if kind == "megakernel" else mk.mono_pass
+    ms = _cuda_ms(lambda: fn(tables, seed, 0, spp, depth, **kw), reps)
+    dev = tables.geom.device
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
+    wt = mk.warp_times_buffer(tables.n_lanes, dev)
+    fn(tables, seed, 0, spp, depth, work=work, warp_times=wt, **kw)
+    w = _work(work)
+    bound, by = _bound(_path_ops(work, tables), tables.n_lanes * 3 * 4)
+    return dict(ms=ms, bound=bound, by=by, work=w,
+                simt=(w["sphere_rows"] / (32 * w["warp_sphere_rows"])
+                      if w["warp_sphere_rows"] else None),
+                lane_use=w["lane_steps"] / max(32 * w["warp_iters"], 1),
+                **mk.tail_share(wt))
 
 
 def _cuda_ms_once(fn):
@@ -226,7 +263,8 @@ def _registers(log: str) -> dict:
     ``path`` or ``mis`` (the segment kernel is ``path`` only); ``book2``
     for the motion, box, media and texture code, ``base`` without it;
     ``count`` for the work-counting instances, which no timed launch
-    runs."""
+    runs; the megakernels' ``coop`` instances (``megakernel.cluster_cull``)
+    and the per-lane ``lane`` ones."""
     out, name, spill = {}, None, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -244,11 +282,13 @@ def _registers(log: str) -> dict:
                 base += "<highest>" if flags[0] else "<default>"
             if len(flags) == 2:  # segment_kernel<BOOK2, COUNT>
                 flags = [False] + flags
-            if len(flags) == 3:  # <MIS, BOOK2, COUNT>
-                mis, book2, count = flags
+            if len(flags) >= 3:  # <MIS, BOOK2, COUNT[, COOP]>
+                mis, book2, count = flags[:3]
+                coop = "" if len(flags) == 3 else (
+                    ", coop" if flags[3] else ", lane")
                 base += (f"<{'mis' if mis else 'path'}, "
                          f"{'book2' if book2 else 'base'}"
-                         f"{', count' if count else ''}>")
+                         f"{', count' if count else ''}{coop}>")
             name = base
         elif "spill stores" in ln:
             spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
@@ -656,6 +696,7 @@ def _phase9(dev) -> dict:
 
     # ---- every other new scene at its own config, kernel vs plain twin
     errs = {"the_next_week": k2_err}
+    k3_cells: dict = {}
     for name in ("book2_bouncing_spheres", "book2_earth",
                  "book2_checkered_spheres", "book2_perlin_spheres",
                  "book2_simple_light", "book2_cornell_smoke",
@@ -691,6 +732,16 @@ def _phase9(dev) -> dict:
             _check(k10["equal"], "K2 on sphere_field_10k's third launch")
             err = max(err, k10["err"])
         errs[name] = err
+        if route == "k3" and name in K3_CELLS_400:
+            p = _mk_profile("megakernel", tab, cf.seed, cf.samples_per_pixel,
+                            cf.max_depth, reps=3)
+            k3_cells[name] = {k: p[k] for k in ("ms", "bound", "by",
+                                                "lane_use", "tail_share")}
+            print(f"[9 {name} K3] {tab.n_lanes} lanes x "
+                  f"{cf.samples_per_pixel} spp: kernel {p['ms']:.3f} ms, "
+                  f"bound {p['bound']:.4f} ms ({p['by']}), lane-use share "
+                  f"{p['lane_use']:.4f}, tail share {p['tail_share']:.4f}",
+                  flush=True)
         acc = st["accum"] / st["spp_done"]
         kern = "megakernel" if route == "k3" else "persist"
         what = ("1 spp K3 pass" if route == "k3"
@@ -727,6 +778,7 @@ def _phase9(dev) -> dict:
                 k2_zero_ms=k2_ms, k2_zero_plain_ms=k2_plain_ms,
                 k2_zero_bound=k2_bound, R9=R9, iters9=iters9,
                 k3f_ms=k3f_ms, k3f_bound=k3f_bound, k3f_by=k3f_by,
+                k3_cells=k3_cells,
                 k2_work=k2m["work"], k3f_work=_work(work3),
                 paths_per_s=w9 * h9 * spp9 / wall9, scene=s9, cfg=c9,
                 cam=cam9, tables=tab9, accum=st9["accum"], plain4=plain9,
@@ -778,16 +830,17 @@ def _phase10(dev, p7: dict) -> dict:
         lambda: mk.mono_pass_plain(tab, seed, off, 2, 50))
     eq_tw = bool(torch.equal(k4_2, p4_2))
     err = torch.abs(k4_2 - p4_2).max().item()
-    ms = _cuda_ms(lambda: mk.mono_pass(tab, seed, 0, 100, 50), 2)
-    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
-    mk.mono_pass(tab, seed, 0, 100, 50, work=work)
-    bound, by = _bound(_path_ops(work, tab), R * 3 * 4)
+    k4p = _mk_profile("mono", tab, seed, 100, 50, reps=2)
+    ms, bound, by = k4p["ms"], k4p["bound"], k4p["by"]
+    regs = {k: v for k, v in p7["regs"].items() if k.startswith("mono")}
     print(f"[10 K4 check] {R} lanes: K4 == K3 at 4 spp (samples {off}-"
           f"{off + 3}) bitwise (required): {eq_k3}; K4 vs plain twin at 2 "
           f"spp max |diff| {err:.3g}, bitwise equal (required): {eq_tw}; "
           f"K4 {ms:.2f} ms at 100 spp (K3 {p7['k3_ms']:.2f} ms, ratio "
           f"{ms / p7['k3_ms']:.3f}); plain twin {plain_ms:.1f} ms at 2 spp;"
-          f" work {_work(work)}, bound {bound:.3f} ms ({by})", flush=True)
+          f" work {k4p['work']}, bound {bound:.3f} ms ({by}); lane-use "
+          f"share {k4p['lane_use']:.4f} (the per-sample lockstep), tail "
+          f"share {k4p['tail_share']:.4f}; registers {regs}", flush=True)
     _check(eq_k3 and eq_tw, "K4 differs from K3 or from its plain twin")
 
     sS, cS, _ = models.book2_cornell_smoke()
@@ -811,7 +864,8 @@ def _phase10(dev, p7: dict) -> dict:
           f"{errS:.3g}, bitwise equal (required): {eqS1}", flush=True)
     _check(eqS and eqS1, "K4 differs on the Cornell smoke")
     return dict(launches=counts["mono"], err=max(err, errS), ms=ms,
-                plain_ms=plain_ms, bound=bound, by=by, work=_work(work),
+                plain_ms=plain_ms, bound=bound, by=by, work=k4p["work"],
+                lane_use=k4p["lane_use"], tail=k4p["tail_share"], regs=regs,
                 R=R, smoke_ms=k4S_ms, smoke_k3_ms=k3S_ms,
                 paths_per_s=600 * 600 * 100 / wall)
 
@@ -1661,17 +1715,16 @@ def main() -> int:
 
     # K3 at the main path's shape, 372,736 lanes x 100 spp, and at the plain
     # twin's (4 spp); the work counted by the COUNT instance
-    k3_ms = _cuda_ms(lambda: mk.respawn_pass(tab100, seed7, 0, spp7, 50), 2)
+    k3p = _mk_profile("megakernel", tab100, seed7, spp7, 50, reps=2)
+    k3_ms, k3_bound, k3_by = k3p["ms"], k3p["bound"], k3p["by"]
     k3_ms4 = _cuda_ms(lambda: mk.respawn_pass(tab100, seed7, off7, 4, 50), 3)
-    work7 = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
-                        device=dev)
-    mk.respawn_pass(tab100, seed7, 0, spp7, 50, work=work7)
-    k3_bound, k3_by = _bound(_path_ops(work7, tab100), R7 * 3 * 4)
     print(f"[7 K3 timing] {R7} lanes: kernel {k3_ms:.2f} ms at {spp7} spp, "
           f"{k3_ms4:.3f} ms at 4 spp; plain twin {k3_plain_ms:.2f} ms at 4 "
-          f"spp; work at {spp7} spp {_work(work7)}, "
-          f"{int(work7[0]) / (R7 * spp7):.3f} bounces/path, bound "
-          f"{k3_bound:.3f} ms ({k3_by})", flush=True)
+          f"spp; work at {spp7} spp {k3p['work']}, "
+          f"{k3p['work']['bounces'] / (R7 * spp7):.3f} bounces/path, bound "
+          f"{k3_bound:.3f} ms ({k3_by}); lane-use share "
+          f"{k3p['lane_use']:.4f}, tail share {k3p['tail_share']:.4f}",
+          flush=True)
 
     # ---- 8: the other K3 routes, each held against the plain twin at its
     # full lane count and reduced spp
@@ -1737,6 +1790,13 @@ def main() -> int:
            "the 4K flagship pass did not run one K3 launch")
     _check(eq4k, "K3 and its plain twin differ on the 4K flagship")
     _check(bool(torch.isfinite(acc4k).all()), "non-finite 4K sums")
+    k4kp = _mk_profile("megakernel", tab4k, c4k.seed, 16, 50, reps=2)
+    print(f"[8 flagship 4K K3] {tab4k.n_lanes} lanes x 16 spp: kernel "
+          f"{k4kp['ms']:.2f} ms, bound {k4kp['bound']:.3f} ms "
+          f"({k4kp['by']}); SIMT efficiency of the leaf scans "
+          f"{k4kp['simt']:.4f}, lane-use share {k4kp['lane_use']:.4f}, "
+          f"tail share {k4kp['tail_share']:.4f} ({k4kp['warps']} warps); "
+          f"work {k4kp['work']}", flush=True)
 
     # the two-level cull (>= 16 clusters), which no ported reference scene
     # reaches: 1500 spheres on the ground, K3 vs plain twin
@@ -1746,17 +1806,24 @@ def main() -> int:
     kS = mk.respawn_pass(tabS, 7, 0, 4, 50)
     pS = mk.respawn_pass_plain(tabS, 7, 0, 4, 50)
     eqS, errS = bool(torch.equal(kS, pS)), torch.abs(kS - pS).max().item()
+    # the grid does not change a slot's sums: one block walks the queue
+    one3 = bool(torch.equal(mk.respawn_pass(tabS, 7, 0, 4, 50,
+                                            max_blocks=1), kS))
+    one4 = bool(torch.equal(mk.mono_pass(tabS, 7, 0, 4, 50, max_blocks=1),
+                            kS))
     print(f"[8 two-level cull] 1500-sphere field 320x180 4 spp: "
           f"{tabS.n_sclusters} super-clusters of {tabS.n_clusters} clusters;"
           f" K3 vs plain twin max |diff| {errS:.3g}, bitwise equal "
-          f"(required): {eqS}", flush=True)
+          f"(required): {eqS}; a one-block grid == the full grid, K3 and "
+          f"K4, bitwise (required): {one3} / {one4}", flush=True)
     _check(tabS.n_sclusters > 1, "the field scene has no super-clusters")
     _check(eqS, "K3 and its plain twin differ under the two-level cull")
+    _check(one3 and one4, "a one-block grid changes the megakernels' sums")
 
     r9 = _phase9(dev)
     p7 = dict(scene=s7, cfg=c7, cam=cam7, tables=tab100, off=off7,
               accum=st7["accum"], plain4=plain4, k3_sums=k3_sums,
-              k3_ms=k3_ms)
+              k3_ms=k3_ms, regs=regs)
     r10 = _phase10(dev, p7)
     r11 = _phase11(dev, r9)
     r12 = _phase12(dev)
@@ -1768,6 +1835,7 @@ def main() -> int:
 
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
                "flagship_4k": err4k, "field_1500": errS,
+               **{k: r9["errs"][k] for k in r9["k3_cells"]},
                "quad_field_1024": r12["err"], "smoke_mis": err13}
     kernels = [dict(name="sphere_hit", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/sphere_hit.cu",
@@ -1828,7 +1896,9 @@ def main() -> int:
                     max_abs_err=max(k3_errs.values()),
                     max_abs_err_by_route=k3_errs,
                     ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
-                    bound_by=k3_by, library_ms=None, work=_work(work7),
+                    bound_by=k3_by, library_ms=None, work=k3p["work"],
+                    lane_use_share=k3p["lane_use"],
+                    tail_share=k3p["tail_share"],
                     ms_shape=f"{R7} lanes x {spp7} spp, book3_cornell_box",
                     plain_ms_shape=f"{R7} lanes x 4 spp, book3_cornell_box",
                     ms_at_plain_shape=k3_ms4,
@@ -1838,6 +1908,14 @@ def main() -> int:
                     final_scene_work=r9["k3f_work"],
                     final_scene_shape=f"{r9['R9']} lanes x 2 spp, "
                                       "the_next_week",
+                    flagship_4k_ms=k4kp["ms"],
+                    flagship_4k_bound_ms=k4kp["bound"],
+                    flagship_4k_simt_efficiency=k4kp["simt"],
+                    flagship_4k_lane_use_share=k4kp["lane_use"],
+                    flagship_4k_tail_share=k4kp["tail_share"],
+                    flagship_4k_work=k4kp["work"],
+                    flagship_4k_shape=f"{tab4k.n_lanes} lanes x 16 spp",
+                    book2_400x225=r9["k3_cells"],
                     quad_field_ms=r12["k3_ms"],
                     quad_field_linear_scan_ms=r12["lin_ms"]),
                dict(name="mono", route="cuda",
@@ -1855,6 +1933,8 @@ def main() -> int:
                     plain_ms_shape=f"{r10['R']} lanes x 2 spp, "
                                    "book3_cornell_box",
                     k3_ms_same_shape=k3_ms,
+                    lane_use_share=r10["lane_use"], tail_share=r10["tail"],
+                    registers=r10["regs"],
                     smoke_ms=r10["smoke_ms"],
                     smoke_k3_ms=r10["smoke_k3_ms"]),
                dict(name="segment", route="cuda",

@@ -96,21 +96,33 @@ struct Params {
   int moving, has_checker, has_noise, has_image;
   uint32_t k0, k1;
   int sample_offset;
-  // [9] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
+  // [11] work counters (ops/megakernel.py WORK_NAMES), read by the COUNT
   // instances only; null otherwise
   unsigned long long* work;
+  // [n_warps, 2] each warp's first start and last finish (globaltimer ns),
+  // kept by atomicMin / atomicMax: read by the COUNT instances only, where
+  // not null; the caller fills the starts with ~0 and the finishes with 0
+  unsigned long long* warp_t;
 };
 
-constexpr int N_WORK = 9;
+constexpr int N_WORK = 11;
 
-// The cooperative leaf scan's T (intersect<BOOK2, true>, K2 only): a
+// The cooperative leaf scan's T (intersect<BOOK2, true>; K2, K3, K4): a
 // cluster that at most this many lanes of a warp need is scanned by the
-// whole warp for each of them in turn.  Fixed from a sweep on the H100
-// (chip_measure.py --kernels, which builds with -DRTT_COOP_LANES=T).
+// whole warp for each of them in turn.  Fixed from sweeps on the H100
+// (chip_measure.py --kernels for K2 and --mega-sweep for K3 and K4, which
+// build with -DRTT_COOP_LANES=T): 12 is the best of those measured for
+// both.
 #ifndef RTT_COOP_LANES
 #define RTT_COOP_LANES 12
 #endif
 constexpr int COOP_LANES = RTT_COOP_LANES;
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // Per-thread work counts, added to Params::work once at the end.  The
 // kernels are instantiated with COUNT = false for every timed launch, where
@@ -118,7 +130,11 @@ constexpr int COOP_LANES = RTT_COOP_LANES;
 // where a caller passes Params::work.
 template <bool COUNT>
 struct Work {
-  uint32_t n[N_WORK] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t n[N_WORK] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  unsigned long long t0 = 0;  // the thread's start (COUNT)
+  __device__ Work() {
+    if constexpr (COUNT) t0 = globaltimer();
+  }
   __device__ __forceinline__ void add(int k, int v) {
     if constexpr (COUNT) n[k] += (uint32_t)v;
   }
@@ -146,11 +162,23 @@ struct Work {
   __device__ __forceinline__ void warp_steps(int v) {
     if ((threadIdx.x & 31) == 0) add(8, v);
   }
+  // the lane-use share of a megakernel: lane_steps / (32 x warp_steps), the
+  // iterations in which a lane had work over the lanes the warp's
+  // iterations carried
+  __device__ __forceinline__ void lane_step(bool act) { add(9, act ? 1 : 0); }
+  __device__ __forceinline__ void warp_iters(int v) {
+    if ((threadIdx.x & 31) == 0) add(10, v);
+  }
   __device__ __forceinline__ void flush(const Params& P) const {
     if constexpr (COUNT) {
 #pragma unroll
       for (int k = 0; k < N_WORK; ++k)
         atomicAdd(P.work + k, (unsigned long long)n[k]);
+      if (P.warp_t != nullptr) {
+        const size_t w = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+        atomicMin(P.warp_t + 2 * w, t0);
+        atomicMax(P.warp_t + 2 * w + 1, globaltimer());
+      }
     }
   }
 };
@@ -442,13 +470,13 @@ struct Hit {
 // sphere's, near its surface), and the box test then drops that hit.  The
 // plain twin runs the same cull.  (s, sample, b) key the media draws.
 //
-// COOP (K2) is the warp-level form, the counterpart of the TPU kernel's
-// tile-wide cull: the whole warp calls it, `live` says whether this lane
-// has a ray, and each sphere or box cluster's leaf rows go through
-// cluster_warp / box_cluster_warp on the warp's ballot of box hits.  The
-// cluster order and every lane's box tests and best t are those of the
-// per-lane form, so both give the same hit bitwise.  Without COOP, `live`
-// is true.
+// COOP (K2, K3, K4) is the warp-level form, the counterpart of the TPU
+// kernel's tile-wide cull: the whole warp calls it, `live` says whether
+// this lane has a ray, and each sphere or box cluster's leaf rows go
+// through cluster_warp / box_cluster_warp on the warp's ballot of box
+// hits.  The cluster order and every lane's box tests and
+// best t are those of the per-lane form, so both give the same hit
+// bitwise.  Without COOP (K5), `live` is true.
 template <bool BOOK2, bool COOP, class WorkT>
 __device__ inline Hit intersect(const Params& P, float tm, float ox,
                                 float oy, float oz, float dx, float dy,
@@ -1215,8 +1243,8 @@ __device__ __forceinline__ void shade(Lane& L, const Params& P, uint32_t s,
   W.bounce();
 }
 
-// One bounce of a live lane: the closest hit (the per-lane intersect), then
-// shade.  `s` and `sample` key the draws.
+// One bounce of a live lane (K5): the closest hit (the per-lane
+// intersect), then shade.  `s` and `sample` key the draws.
 template <bool MIS, bool BOOK2, class WorkT>
 __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
                        WorkT& W) {
@@ -1226,6 +1254,29 @@ __device__ void bounce(Lane& L, const Params& P, uint32_t s, uint32_t sample,
                                         L.dz, a, inv_a, s, sample,
                                         (uint32_t)L.b, true, W);
   shade<MIS, BOOK2>(L, P, s, sample, H, a, W);
+}
+
+// The same bounce in a converged warp (K2, K3, K4): every lane of the warp
+// calls it, and `live` says whether this lane has a live ray.  With COOP
+// the intersect is the warp-cooperative one, which a lane without a live
+// ray joins with its ballot bits clear; without it (tables with no sphere
+// or box cluster cull, where there is no cluster scan to share) the live
+// lanes take the per-lane bounce, the same computation in less code.
+// Either way the live lanes compute what bounce computes.
+template <bool MIS, bool BOOK2, bool COOP, class WorkT>
+__device__ __forceinline__ void bounce_warp(Lane& L, const Params& P,
+                                            uint32_t s, uint32_t sample,
+                                            bool live, WorkT& W) {
+  if constexpr (COOP) {
+    const float a = L.dx * L.dx + L.dy * L.dy + L.dz * L.dz;
+    const float inv_a = 1.0f / a;
+    const Hit H = intersect<BOOK2, true>(P, L.tm, L.ox, L.oy, L.oz, L.dx,
+                                         L.dy, L.dz, a, inv_a, s, sample,
+                                         (uint32_t)L.b, live, W);
+    if (live) shade<MIS, BOOK2>(L, P, s, sample, H, a, W);
+  } else if (live) {
+    bounce<MIS, BOOK2>(L, P, s, sample, W);
+  }
 }
 
 // clamped pixel coordinates of a slot under the 32x32 screen swizzle
@@ -1319,34 +1370,19 @@ __device__ __forceinline__ uint32_t bank_respawn(Lane& L, const Params& P,
   return sample;
 }
 
-// One iteration of a lane: bank, respawn, and one bounce of a live lane.
-template <bool MIS, bool BOOK2, class WorkT>
-__device__ __forceinline__ void lane_step(Lane& L, const Params& P,
-                                          uint32_t s, float px, float py,
-                                          WorkT& W) {
-  const uint32_t sample = bank_respawn<BOOK2>(L, P, s, px, py);
-  if (L.alive > 0.0f) bounce<MIS, BOOK2>(L, P, s, sample, W);
-}
-
-// The same iteration in a converged warp (K2): every lane of the warp calls
-// it, and `act` says whether this lane takes the step (it has work and is
-// within its bound).  The intersect is the warp-cooperative one, which a
-// lane without a live ray joins with its ballot bits clear; the lanes that
-// act compute what lane_step computes.
-template <bool MIS, bool BOOK2, class WorkT>
+// One iteration of a lane in a converged warp (K2, K3): every lane of the
+// warp calls it, and `act` says whether this lane takes the step (it has
+// work, and in K2 is within its bound): bank a finished path, respawn, and
+// one bounce_warp (COOP as there; K2 always cooperative), which the lanes
+// without a live ray join.
+template <bool MIS, bool BOOK2, bool COOP = true, class WorkT>
 __device__ __forceinline__ void lane_step_warp(Lane& L, const Params& P,
                                                uint32_t s, float px,
                                                float py, bool act,
                                                WorkT& W) {
   uint32_t sample = 0;
   if (act) sample = bank_respawn<BOOK2>(L, P, s, px, py);
-  const bool live = act && L.alive > 0.0f;
-  const float a = L.dx * L.dx + L.dy * L.dy + L.dz * L.dz;
-  const float inv_a = 1.0f / a;
-  const Hit H = intersect<BOOK2, true>(P, L.tm, L.ox, L.oy, L.oz, L.dx, L.dy,
-                                       L.dz, a, inv_a, s, sample,
-                                       (uint32_t)L.b, live, W);
-  if (live) shade<MIS, BOOK2>(L, P, s, sample, H, a, W);
+  bounce_warp<MIS, BOOK2, COOP>(L, P, s, sample, act && L.alive > 0.0f, W);
 }
 
 }  // namespace rtt

@@ -63,7 +63,7 @@ class PathParams(ctypes.Structure):
         ("spp", _I), ("max_depth", _I), ("stratified", _I),
         ("sqrt_spp", _I), ("moving", _I), ("has_checker", _I),
         ("has_noise", _I), ("has_image", _I), ("k0", _U), ("k1", _U),
-        ("sample_offset", _I), ("work", _P),
+        ("sample_offset", _I), ("work", _P), ("warp_t", _P),
     ]
 
 
@@ -81,10 +81,11 @@ KERNELS = {
     # tile_lanes, stream
     "persist": Kernel("rtt_persist_step",
                       (_P, _P, _I, _P, _I, _I, _I, _P, _I, _P)),
-    # out, R, &PathParams, mis, book2, stream
-    "megakernel": Kernel("rtt_respawn_pass", (_P, _I, _P, _I, _I, _P)),
-    # out, R, &PathParams, mis, book2, stream
-    "mono": Kernel("rtt_mono_pass", (_P, _I, _P, _I, _I, _P)),
+    # out, R, &PathParams, mis, book2, coop, queue, grid, stream
+    "megakernel": Kernel("rtt_respawn_pass",
+                         (_P, _I, _P, _I, _I, _I, _P, _I, _P)),
+    # out, R, &PathParams, mis, book2, coop, queue, grid, stream
+    "mono": Kernel("rtt_mono_pass", (_P, _I, _P, _I, _I, _I, _P, _I, _P)),
     # state, sample, R, &PathParams, book2, stream
     "segment": Kernel("rtt_segment_step", (_P, _P, _I, _P, _I, _P)),
     # dtab, NS, ox, oy, oz, dx, dy, dz, iters, highest, bt, bi, R, stream
@@ -94,6 +95,10 @@ KERNELS = {
     "scalar_hit": Kernel("rtt_scalar_hit", (
         _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P)),
 }
+
+# the megakernels' launch-shape queries: (mis, book2, count, coop, &block)
+# -> blocks an SM holds (the occupancy query), negative on a CUDA error
+_SHAPES = {"megakernel": "rtt_respawn_shape", "mono": "rtt_mono_shape"}
 
 _lock = threading.Lock()
 _lib = None
@@ -186,6 +191,10 @@ def library() -> ctypes.CDLL:
             lib.rtt_error_string.argtypes = [ctypes.c_int]
             lib.rtt_params_size.restype = ctypes.c_int
             lib.rtt_params_size.argtypes = []
+            for fn in _SHAPES.values():
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = [_I, _I, _I, _I,
+                                             ctypes.POINTER(_I)]
             if lib.rtt_params_size() != ctypes.sizeof(PathParams):
                 raise RuntimeError(
                     f"PathParams is {ctypes.sizeof(PathParams)} bytes, the "
@@ -206,6 +215,20 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"error {err} ({msg})")
     k.launches += 1
+
+
+def megakernel_shape(name: str, mis: bool, book2: bool, count: bool,
+                     coop: bool) -> tuple:
+    """(threads a block, blocks an SM holds) of the instance <mis, book2,
+    count, coop> of megakernel ``name`` on the current device; raises on a
+    CUDA error."""
+    block = _I(0)
+    per_sm = getattr(library(), _SHAPES[name])(
+        int(mis), int(book2), int(count), int(coop), ctypes.byref(block))
+    if per_sm <= 0:
+        raise RuntimeError(f"occupancy query of {name!r} failed: error "
+                           f"{-per_sm}")
+    return block.value, per_sm
 
 
 def launch_counts() -> dict:

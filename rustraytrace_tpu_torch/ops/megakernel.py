@@ -22,11 +22,14 @@ image table is flat texels ``[sum h*w, 3]`` with an int32 ``(base, w, h)``
 row per image instead of (8, 128)-tiled RGBA blocks.
 
 Device half: ``respawn_pass`` launches K3 (``csrc/megakernel.cu``), one
-launch per render pass, in which every lane walks its ``spp`` samples back
-to back, respawning on its own; ``mono_pass`` launches K4
-(``csrc/mono.cu``), in which every lane runs its samples one after another
-and a warp meets at each sample boundary.  CPU tensors run their plain
-twins ``respawn_pass_plain`` and ``mono_pass_plain``.
+launch per render pass, in which a lane walks a slot's ``spp`` samples back
+to back, respawning on its own, then takes the next slot from a device
+queue; ``mono_pass`` launches K4 (``csrc/mono.cu``), in which a warp runs
+its 32 slots' samples one after another and meets at each sample
+boundary.  Both launch one resident wave of blocks (``megakernel_grid``)
+fed by a zeroed slot counter (``slot_queue``), in the instance
+``cluster_cull`` picks from the tables.  CPU tensors run their
+plain twins ``respawn_pass_plain`` and ``mono_pass_plain``.
 ``render_pass_megakernel`` prepares the tables, runs one pass (K4 unless
 ``respawn``) and unswizzles the sums to pixels.
 """
@@ -62,10 +65,13 @@ BOX_MAX_LEAF = 32
 # work counters of the kernels' COUNT instances (path_params ``work``);
 # ``warp_sphere_rows`` counts the sphere rows a warp issues (a cluster's
 # rows once for the lanes that scan it together), so sphere_rows /
-# (32 x warp_sphere_rows) is the leaf scans' SIMT efficiency
+# (32 x warp_sphere_rows) is the leaf scans' SIMT efficiency; the
+# megakernels count ``lane_steps``, the iterations in which a lane had
+# work, and ``warp_iters``, the iterations their warps ran, so lane_steps /
+# (32 x warp_iters) is their lane-use share
 WORK_NAMES = ("bounces", "sphere_rows", "cluster_boxes", "box_rows",
               "media_tests", "noise_evals", "texel_fetches", "quad_rows",
-              "warp_sphere_rows")
+              "warp_sphere_rows", "lane_steps", "warp_iters")
 
 # joined sphere+material table columns (pallas_megakernel.py:83-94)
 J_CX, J_CY, J_CZ, J_R2 = 0, 1, 2, 3
@@ -766,14 +772,21 @@ def check_tables(tables: Prepared) -> None:
 
 
 def path_params(t: Prepared, seed: int, *, spp: int, max_depth: int,
-                sample_offset: int = 0,
-                work: torch.Tensor | None = None) -> _cuda.PathParams:
+                sample_offset: int = 0, work: torch.Tensor | None = None,
+                warp_times: torch.Tensor | None = None) -> _cuda.PathParams:
     """The C struct ``rtt::Params`` of a launch on ``t``'s tables.  ``work``
-    (int64 [9], optional) receives the launch's counts named by WORK_NAMES,
-    added to what it holds; it selects the counting instance of the kernel,
-    so a timed launch passes none."""
+    (int64 [11], optional) receives the launch's counts named by
+    WORK_NAMES, added to what it holds; it selects the counting instance of
+    the kernel, so a timed launch passes none.  ``warp_times`` (int64
+    [n, 2] from ``warp_times_buffer``, with ``work`` only) receives each
+    warp's start and finish on the device's clock."""
     if work is not None:
         _cuda.require(work, "work", torch.int64, (len(WORK_NAMES),))
+    if warp_times is not None:
+        if work is None:
+            raise ValueError("warp_times needs work: only the counting "
+                             "instances record them")
+        _cuda.require(warp_times, "warp_times", torch.int64, (None, 2))
     k0, k1 = seed_key(seed)
     return _cuda.PathParams(
         geom=t.geom.data_ptr(), gvel=t.gvel.data_ptr(), tab=t.tab.data_ptr(),
@@ -796,7 +809,36 @@ def path_params(t: Prepared, seed: int, *, spp: int, max_depth: int,
         moving=int(t.moving), has_checker=int(t.has_checker),
         has_noise=int(t.has_noise), has_image=int(t.has_image), k0=k0,
         k1=k1, sample_offset=int(sample_offset),
-        work=None if work is None else work.data_ptr())
+        work=None if work is None else work.data_ptr(),
+        warp_t=None if warp_times is None else warp_times.data_ptr())
+
+
+def warp_times_buffer(n_lanes: int, device) -> torch.Tensor:
+    """The ``warp_times`` record of a megakernel launch over ``n_lanes``
+    slots: int64 [n, 2], a row for every warp the launch can have (blocks
+    of up to 256 threads), starts at ~0 and finishes at 0, so a warp that
+    never ran keeps a finish of 0."""
+    n = -(-n_lanes // 256) * 8
+    t = torch.zeros((n, 2), dtype=torch.int64, device=device)
+    t[:, 0] = -1
+    return t
+
+
+def tail_share(warp_times: torch.Tensor) -> dict:
+    """From a ``warp_times`` record: the launch's span (first start to last
+    finish, ns) and its tail, the share of the span after the card can no
+    longer be kept full: once the last warp has started and a warp has
+    finished (a grid of many short blocks fills the card until its last
+    block starts, a persistent grid until its first warp runs dry)."""
+    t = warp_times.cpu()
+    t = t[t[:, 1] > 0]
+    start, last_start = int(t[:, 0].min()), int(t[:, 0].max())
+    first, last = int(t[:, 1].min()), int(t[:, 1].max())
+    span = max(last - start, 1)
+    return dict(span_ns=span, warps=int(t.shape[0]),
+                last_start_share=(last_start - start) / span,
+                first_finish_share=(first - start) / span,
+                tail_share=(last - max(last_start, first)) / span)
 
 
 def respawn_pass_plain(tables: Prepared, seed: int, sample_offset: int,
@@ -843,45 +885,105 @@ def mono_pass_plain(tables: Prepared, seed: int, sample_offset: int,
     return sums.T.contiguous()
 
 
+# (kernel, template flags, device index) -> (block, resident blocks)
+_RESIDENT: dict = {}
+
+
+def _resident(name: str, flags: tuple, device: torch.device) -> tuple:
+    """(threads a block, blocks resident on the card) of the instance of
+    megakernel ``name`` with template ``flags``: the SMs times the
+    occupancy query's blocks an SM, queried once per instance and
+    device."""
+    key = (name, flags, device.index)
+    if key not in _RESIDENT:
+        with torch.cuda.device(device):
+            block, per_sm = _cuda.megakernel_shape(name, *flags)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _RESIDENT[key] = (block, sms * per_sm)
+    return _RESIDENT[key]
+
+
+def cluster_cull(tables: Prepared) -> bool:
+    """Whether a sphere or box cluster cull runs on ``tables``: the
+    megakernels then take their cooperative instance (K2's leaf scan, and
+    in K3 32 consecutive slots a warp, whose neighbouring primary rays keep
+    it efficient); otherwise the per-lane bounce (and in K3 a slot a lane,
+    every lane busy until the queue runs dry)."""
+    return tables.n_clusters > 0 or tables.n_bclusters > 1
+
+
+def megakernel_grid(n_slots: int, block: int, resident: int,
+                    max_blocks: int | None = None) -> int:
+    """Blocks of a megakernel launch over ``n_slots`` slots: one resident
+    wave, never more blocks than the slots need (a slot a thread), nor than
+    ``max_blocks``."""
+    if max_blocks is not None and max_blocks < 1:
+        raise ValueError(f"max_blocks must be at least 1, got {max_blocks}")
+    grid = min(resident, -(-n_slots // block))
+    return grid if max_blocks is None else min(grid, max_blocks)
+
+
+def slot_queue(device) -> torch.Tensor:
+    """The slot queue of one megakernel launch: a new int32 zero on the
+    device, written on the current stream (no host sync), so no launch
+    starts from another's count."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def _megakernel_launch(name: str, tables: Prepared, seed: int,
                        sample_offset: int, spp: int, max_depth: int,
-                       work: torch.Tensor | None) -> torch.Tensor:
+                       work: torch.Tensor | None,
+                       warp_times: torch.Tensor | None,
+                       max_blocks: int | None) -> torch.Tensor:
     """One launch of megakernel ``name`` ("megakernel" K3 or "mono" K4)
     over every slot: the radiance sums [R, 3]."""
     check_tables(tables)
     R = tables.n_lanes
-    out = torch.empty((R, 3), dtype=torch.float32, device=tables.geom.device)
+    dev = tables.geom.device
+    out = torch.empty((R, 3), dtype=torch.float32, device=dev)
     params = path_params(tables, seed, spp=spp, max_depth=max_depth,
-                         sample_offset=sample_offset, work=work)
+                         sample_offset=sample_offset, work=work,
+                         warp_times=warp_times)
+    coop = cluster_cull(tables)
+    block, resident = _resident(
+        name, (tables.mis, tables.book2, work is not None, coop), dev)
+    queue = slot_queue(dev)
     _cuda.launch(name, out.data_ptr(), R, ctypes.addressof(params),
-                 int(tables.mis), int(tables.book2))
+                 int(tables.mis), int(tables.book2), int(coop),
+                 queue.data_ptr(),
+                 megakernel_grid(R, block, resident, max_blocks))
     return out
 
 
 def respawn_pass(tables: Prepared, seed: int, sample_offset: int, spp: int,
-                 max_depth: int, work: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 max_depth: int, work: torch.Tensor | None = None,
+                 warp_times: torch.Tensor | None = None,
+                 max_blocks: int | None = None) -> torch.Tensor:
     """One K3 launch over every slot: the radiance sums [R, 3] of ``spp``
-    samples per lane (absolute indices ``sample_offset + [0, spp)``).  CUDA
-    tables launch ``csrc/megakernel.cu``; CPU tables run
-    ``respawn_pass_plain``.  ``work`` as in ``path_params``."""
+    samples per slot (absolute indices ``sample_offset + [0, spp)``).  CUDA
+    tables launch ``csrc/megakernel.cu`` (the instance ``cluster_cull``
+    picks) on one resident wave of blocks, at most ``max_blocks``; CPU
+    tables run ``respawn_pass_plain``.  ``work`` and ``warp_times`` as in
+    ``path_params``.  The sums do not depend on the grid."""
     if tables.geom.device.type == "cpu":
         return respawn_pass_plain(tables, seed, sample_offset, spp,
                                   max_depth)
     return _megakernel_launch("megakernel", tables, seed, sample_offset, spp,
-                              max_depth, work)
+                              max_depth, work, warp_times, max_blocks)
 
 
 def mono_pass(tables: Prepared, seed: int, sample_offset: int, spp: int,
-              max_depth: int, work: torch.Tensor | None = None
-              ) -> torch.Tensor:
+              max_depth: int, work: torch.Tensor | None = None,
+              warp_times: torch.Tensor | None = None,
+              max_blocks: int | None = None) -> torch.Tensor:
     """One K4 launch over every slot: the same sums as ``respawn_pass``,
-    bitwise, each lane running its samples one after another.  CUDA tables
-    launch ``csrc/mono.cu``; CPU tables run ``mono_pass_plain``."""
+    bitwise, each warp running its 32 slots' samples one after another in
+    lockstep.  CUDA tables launch ``csrc/mono.cu`` (grid as
+    ``respawn_pass``); CPU tables run ``mono_pass_plain``."""
     if tables.geom.device.type == "cpu":
         return mono_pass_plain(tables, seed, sample_offset, spp, max_depth)
     return _megakernel_launch("mono", tables, seed, sample_offset, spp,
-                              max_depth, work)
+                              max_depth, work, warp_times, max_blocks)
 
 
 def render_pass_megakernel(scene: Scene, cam: CameraParams, seed: int, *,

@@ -22,6 +22,8 @@ from rustraytrace_tpu_torch.ops import wavefront as wf  # noqa: E402
 from torch_scenes import (FIELD_INSIDE_CFG, SMOKE_CFG, quad_field,  # noqa: E402
                           smoke_mis_scene)
 
+WORK_INDEX = {n: k for k, n in enumerate(mk.WORK_NAMES)}
+
 
 @pytest.fixture
 def cuda():
@@ -567,3 +569,85 @@ def test_render_image_on_pass_gets_a_host_copy(cuda):
     _, full = render.render_image(scene, cfg, on_pass=grab, device=cuda)
     assert len(seen) == 2
     np.testing.assert_array_equal(seen[-1], full["accum"])
+
+
+def _megakernel_tables(name, cuda):
+    """Tables of a small render of ``name``: "the_next_week" (motion,
+    boxes, media, Perlin, image texels), "book3_cornell_box" (MIS, quads,
+    strata) or "smoke_mis" (a medium under MIS)."""
+    if name == "smoke_mis":
+        scene = smoke_mis_scene(SceneBuilder, (0.73, 0.73, 0.73))
+        cfg = RenderConfig(image_width=48, **SMOKE_CFG)
+        return mk.prepare_megakernel(scene, derive_camera(cfg, "cpu"),
+                                     width=48, height=48, mis=True,
+                                     device=cuda)
+    scene, cfg, integ = models.get_scene(name, dict(image_width=48))
+    mis = integ == "mis"
+    return mk.prepare_megakernel(
+        scene, derive_camera(cfg, "cpu"), width=48, height=cfg.image_height,
+        mis=mis, stratified=cfg.stratified, sqrt_spp=2 if mis else 0,
+        device=cuda)
+
+
+def _first_slots(tables, n):
+    """The tables restricted to their first ``n`` slots (``n_lanes`` =
+    n), which kernels and twins both read."""
+    import dataclasses
+
+    @dataclasses.dataclass
+    class FirstSlots(mk.Prepared):
+        cut: int = 0
+
+        @property
+        def n_lanes(self):
+            return self.cut
+
+    return FirstSlots(**{f.name: getattr(tables, f.name)
+                         for f in dataclasses.fields(tables)}, cut=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["the_next_week", "book3_cornell_box",
+                                  "smoke_mis"])
+@pytest.mark.parametrize("R", [1, 31, 33, 4097])
+def test_megakernels_match_plain_on_ragged_slot_counts(cuda, name, R):
+    """K3 and K4 over R slots (one lane, partial warps, a partial block)
+    against their plain twins, bitwise: every slot taken from the queue
+    once and written once, with motion, media and MIS, in the cooperative
+    instance (the final scene's cluster cull) and the per-lane one."""
+    tables = _first_slots(_megakernel_tables(name, cuda), R)
+    assert mk.cluster_cull(tables) == (name == "the_next_week")
+    for kern, plain in ((mk.respawn_pass, mk.respawn_pass_plain),
+                        (mk.mono_pass, mk.mono_pass_plain)):
+        k = kern(tables, 5, 2, 2, 12)
+        p = plain(tables, 5, 2, 2, 12)
+        assert k.shape == (R, 3)
+        assert torch.equal(k, p)
+        # every slot's two paths ran (the first slots may see only black)
+        work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                           device=cuda)
+        assert torch.equal(kern(tables, 5, 2, 2, 12, work=work), p)
+        assert int(work[WORK_INDEX["bounces"]]) >= 2 * R
+    if R > 4096:
+        assert float(p.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["book1_random_spheres", "book3_cornell_box",
+                                  "the_next_week"])
+def test_megakernels_one_block_grid_matches_full_grid(cuda, name):
+    """The sums do not depend on the grid: one block walking every slot of
+    the queue gives the resident wave's sums bitwise, for K3, K4 and their
+    counting instances, cooperative (random spheres, the final scene) and
+    per-lane (the Book-3 box)."""
+    tables = _megakernel_tables(name, cuda)
+    full = mk.respawn_pass(tables, 3, 0, 4, 50)
+    assert float(full.abs().sum()) > 0
+    for kern in (mk.respawn_pass, mk.mono_pass):
+        work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                           device=cuda)
+        assert torch.equal(kern(tables, 3, 0, 4, 50), full)
+        assert torch.equal(kern(tables, 3, 0, 4, 50, max_blocks=1), full)
+        assert torch.equal(kern(tables, 3, 0, 4, 50, work=work,
+                                max_blocks=1), full)
+        assert int(work[WORK_INDEX["lane_steps"]]) > 0
