@@ -53,10 +53,18 @@ numbers behind PERF.md's findings:
    instance forced to the cooperative or the per-lane form, the
    cooperative threshold T, block 128 or 256, the launch bounds' resident
    threads), each timing K3 and K4 on ``MEGA_SWEEP_CELLS`` and held
-   bitwise to the default build's sums.
+   bitwise to the default build's sums;
+12. the segment loop and S1b (``--segments`` runs only this item): the
+   chunk sweep of ``_wavefront_pass_segments`` (segments a host sync, and
+   a chunk as one CUDA graph, ``_segments_graph``; ``SEGMENT_SWEEP``) on
+   the final scene at 400x400 and the two ``scripts/bench_persist.py``
+   cases, one profiled segmented pass of each; S1b's split sweep (lanes a ray) at the spike's
+   shape and at 2^20 rays, and the same with the kernel built to compute
+   the root of a pair whose discriminant is not positive too.
 
     python3 chip_measure.py [--reps 3] [--spp 1024] [--heads] [--reference]
                             [--kernels] [--megakernels] [--mega-sweep]
+                            [--segments]
     python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
@@ -66,7 +74,10 @@ Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
 (``render_pass`` and its K3 pass), the three 400x225 Book-2 scenes of
 K3's route (their K3 passes; ``book2_perlin_spheres``'s ``render_image``
 too), the final scene (``render_image``),
-K2's main-path launches (with their work counts) and K1 with the
+K2's main-path launches (with their work counts), K1, one K5 launch at
+the final scene's first bounce, the segmented final scene, scene 9 and
+earth (``render_pass_wavefront(per_bounce_segments=True)``), S1b at the
+spike's shape and at 2^20 rays and S1a at the spike's shape with the
 package of the checkout DIR
 and with this one, in the order DIR, this, this, DIR, each in its own
 process, and prints one JSON line per process.  Prints the card's name,
@@ -87,9 +98,10 @@ def _ab_child(reps: int) -> dict:
     """Warm timings of the flagship, the Book-3 Cornell box (K3 and K4),
     the 4K pass (end to end and K3 alone), the three 400x225 Book-2 scenes
     on K3 (``book2_perlin_spheres`` end to end too), the final scene, K2's
-    main-path launches with their work counts, K1 at its route's shape and
-    the sphere_kernel route, with the package on sys.path; uses only calls
-    the earlier slices have too."""
+    main-path launches with their work counts, K1 at its route's shape,
+    the sphere_kernel route, one K5 launch, the three segmented cells, S1b
+    and S1a, with the package on sys.path; uses only calls the earlier
+    slices have too."""
     import torch
 
     from rustraytrace_tpu_torch import models, render
@@ -202,7 +214,92 @@ def _ab_child(reps: int) -> dict:
         dict(image_width=1200, samples_per_pixel=16, max_depth=50))
     out["sphere_kernel_render_image_s"] = walls(lambda: render.render_image(
         sk, ck, backend="sphere_kernel", chunk=1 << 20, device=dev))
+
+    # K5: one launch at the final scene's lanes (its first bounce), and
+    # the segmented final scene, scene 9 and earth end to end
+    cam9 = derive_camera(c9, device=dev)
+    tab9 = mk.prepare_megakernel(s9, cam9, width=400, height=400,
+                                 tile_rows=wf.wavefront_tile_rows(s9),
+                                 device=dev)
+    out["final_k5_launch_ms"] = _k5_first_launch_ms(tab9, c9.seed, 250, 4)
+    del tab9
+    cases = dict(final400=("the_next_week", {}), **{
+        k: (name, over) for k, (name, over, _, _) in PERSIST_CASES.items()})
+    for key, (name, over) in cases.items():
+        sc, cc, _ = models.get_scene(name, over)
+        camc = derive_camera(cc, device=dev)
+        out[f"{key}_segments_s"] = walls(lambda: wf.render_pass_wavefront(
+            sc, camc, cc.seed, width=cc.image_width,
+            height=cc.image_height, spp=cc.samples_per_pixel,
+            max_depth=cc.max_depth, per_bounce_segments=True, device=dev))
+
+    # S1: the scalar kernel at both shapes, the dense one at the spike's
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    for label, n_rays, iters in (("spike", 4096, 200), ("2p20", 1 << 20, 1)):
+        _, stab, rays = _spike_tables(1024, n_rays, dev)
+        out[f"s1b_{label}_ms"] = event_ms(
+            lambda: dh.scalar_hit(stab, *rays, iters=iters))
+    dtab, _, rays = _spike_tables(1024, 4096, dev)
+    out["s1a_spike_ms"] = event_ms(
+        lambda: dh.dense_hit(dtab, *rays, iters=200))
     return out
+
+
+def _spike_tables(ns: int, n_rays: int, dev):
+    """S1's inputs as chip_smoke.py's phase 16 draws them: the spike's
+    tables and its 4,096 rays, or ``n_rays`` drawn the same way."""
+    import numpy as np
+    import torch
+
+    from rustraytrace_tpu_torch.scripts import spike_dense_mxu as spike
+
+    dtab, stab, o, d = spike.spike_inputs(ns)
+    if n_rays != o[0].size:
+        rng = np.random.default_rng(1)
+        o = rng.uniform(-100, 100, (3, n_rays)).astype(np.float32)
+        d = rng.normal(size=(3, n_rays)).astype(np.float32)
+    rays = [torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(dev)
+            for x in (*o, *d)]
+    return (torch.from_numpy(dtab).to(dev), torch.from_numpy(stab).to(dev),
+            rays)
+
+
+def _k5_first_launch_ms(tables, seed: int, spp: int, depth: int,
+                        n: int = 10) -> float:
+    """Device ms of one K5 launch from the start of a pass (every lane at
+    its first bounce), over ``n`` copies of that state queued behind a
+    device sleep, after one launch that loads the kernel: the fused step
+    of this package, or the bare bounce of one that has no bank in its
+    kernel."""
+    import inspect
+
+    import torch
+
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    smoke = _smoke()
+    if "sums" in inspect.signature(wf.segment_step).parameters:
+        start = wf.segment_start(tables, seed, 0)
+        alive = torch.zeros(1, dtype=torch.int32, device=start[0].device)
+        copies = [[t.clone() for t in start] for _ in range(n + 1)]
+        fns = [lambda c=c: wf.segment_step(
+            *c, tables, seed, spp=spp, max_depth=depth, alive=alive)
+            for c in copies]
+    else:
+        R = tables.n_lanes
+        dev = tables.geom.device
+        slot = torch.arange(R, dtype=torch.int64, device=dev)
+        sample = torch.zeros(R, dtype=torch.int64, device=dev)
+        v = wf.spawn_lanes(tables, slot, sample, wf.seed_key(seed))
+        zero = torch.zeros(R, device=dev)
+        st0 = torch.stack([v.get(k, zero) for k in wf._SEG_NAMES])
+        s32 = sample.to(torch.int32)
+        copies = [st0.clone() for _ in range(n + 1)]
+        fns = [lambda c=c: wf.segment_step(c, s32, tables, seed,
+                                           max_depth=depth) for c in copies]
+    fns[0]()  # a first launch in the process loads the kernel
+    return smoke._queued_ms(fns[1:])
 
 
 def _smoke():
@@ -329,6 +426,8 @@ def _heads(reps: int) -> None:
                 "wall_s": round(wall, 4),
                 "mpaths_s": round(w * h * spp / wall / 1e6, 2),
                 "launches": stats["launches"],
+                **{k: stats[k] for k in ("kernel_launches", "host_syncs")
+                   if k in stats},
                 "sums_bitwise_equal": same}), flush=True)
         _profiled(f"{case} segments (K5) end to end", lambda: run(True))
 
@@ -350,6 +449,161 @@ def _heads(reps: int) -> None:
         "scan_ms": [round(t[1], 3), round(t[2], 3)],
         "speedup": round((t[1] + t[2]) / (t[0] + t[3]), 3),
         "lanes_differing": differ, "lanes": tab.n_lanes}), flush=True)
+
+
+# the chunk sweep of the segment loop: (segments a host sync, one CUDA
+# graph a chunk)
+SEGMENT_SWEEP = ((1, False), (8, False), (16, False), (32, False),
+                 (64, False), (16, True), (32, True), (64, True))
+
+
+def _segments_graph(tab, seed: int, sample_offset: int, *, spp: int,
+                    max_depth: int, chunk: int, stats: dict):
+    """The segment loop of ``wavefront._wavefront_pass_segments`` with each
+    full chunk of ``chunk`` K5 launches captured once as one CUDA graph and
+    replayed (the rest launched one by one), one host sync a chunk.
+    Returns the sums [R, 3] in slot order."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    state, sums, done, sample = wf.segment_start(tab, seed, sample_offset)
+    launch = wf._segment_launcher(state, sums, done, sample, tab, seed,
+                                  spp=spp, max_depth=max_depth,
+                                  sample_offset=sample_offset)
+    ring = torch.zeros(chunk, dtype=torch.int32, device=state.device)
+    counted = _cuda.KERNELS["segment"].launches
+    cg = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cg):
+        ring.zero_()
+        for j in range(chunk):
+            launch(ring.data_ptr() + 4 * j)
+    _cuda.KERNELS["segment"].launches = counted  # captured, not launched
+    n_seg = spp * max_depth + 1
+    g = syncs = 0
+    segments = n_seg
+    while g < n_seg:
+        n = min(chunk, n_seg - g)
+        if n == chunk:
+            cg.replay()
+        else:
+            ring.zero_()
+            for j in range(n):
+                launch(ring.data_ptr() + 4 * j)
+        counts = ring[:n].tolist()
+        syncs += 1
+        g += n
+        if 0 in counts:
+            segments = g - n + counts.index(0) + 1
+            break
+    stats.update(launches=segments, kernel_launches=g, host_syncs=syncs,
+                 chunk=chunk)
+    return sums.T.contiguous()
+
+
+def _segments(reps: int) -> None:
+    """Item 12: the segment loop's chunk sweep (``SEGMENT_SWEEP``) on the
+    final scene at 400x400 and on the two ``scripts/bench_persist.py``
+    cases, walls in turns, each with its segments, kernel launches and
+    host syncs and sums equal to the first setting's; one profiled
+    segmented pass of each case at the default; S1b's split sweep at the
+    spike's shape and at 2^20 rays; and S1b built with
+    ``-DRTT_SCALAR_SKIP_MISS=0``, every root computed (one child process
+    and build)."""
+    import torch
+
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    dev = torch.device("cuda")
+    cases = dict(final400=("the_next_week", {}), **{
+        k: (name, over) for k, (name, over, _, _) in PERSIST_CASES.items()})
+    for case, (name, over) in cases.items():
+        scene, cfg, _ = models.get_scene(name, over)
+        w, h = cfg.image_width, cfg.image_height
+        spp, depth = cfg.samples_per_pixel, cfg.max_depth
+        tab = mk.prepare_megakernel(
+            scene, derive_camera(cfg, device=dev), width=w, height=h,
+            tile_rows=wf.wavefront_tile_rows(scene), device=dev)
+        ref = None
+        for rep in range(reps):
+            order = SEGMENT_SWEEP if rep % 2 == 0 else SEGMENT_SWEEP[::-1]
+            for chunk, graph in order:
+                stats: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pass_ = _segments_graph if graph else \
+                    wf._wavefront_pass_segments
+                sums = pass_(tab, cfg.seed, 0, spp=spp, max_depth=depth,
+                             chunk=chunk, stats=stats)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ref = sums if ref is None else ref
+                print(json.dumps({
+                    "item": "segment chunks", "case": case, "scene": name,
+                    "width": w, "height": h, "spp": spp, "max_depth": depth,
+                    "rep": rep, "chunk": chunk, "graph": graph,
+                    "wall_s": wall, "mpaths_s": w * h * spp / wall / 1e6,
+                    **stats, "sums_equal": bool(torch.equal(sums, ref))}),
+                    flush=True)
+        cam = derive_camera(cfg, device=dev)
+        run = lambda: wf.render_pass_wavefront(  # noqa: E731
+            scene, cam, cfg.seed, width=w, height=h, spp=spp,
+            max_depth=depth, per_bounce_segments=True, device=dev)
+        run()
+        _profiled(f"{case} segments (K5) end to end", run)
+        del tab
+    _s1b_sweep(reps)
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--s1b-child",
+         json.dumps(["-DRTT_SCALAR_SKIP_MISS=0"]), "--reps", str(reps)],
+        capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"S1b child failed:\n{res.stdout}\n{res.stderr}")
+    print(res.stdout.strip(), flush=True)
+
+
+def _s1b_sweep(reps: int, flags=()) -> None:
+    """S1b at the spike's shape and at 2^20 rays: the default split and
+    every split, in turns, each held bitwise to the twin, with its rate
+    and its counted bound (chip_smoke.py ``_scalar_ops``)."""
+    import torch
+
+    from chip_smoke import _bound, _cuda_ms, _scalar_ops
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    dev = torch.device("cuda")
+    for label, n_rays, iters in (("spike", 4096, 200), ("2^20", 1 << 20, 1)):
+        _, stab, rays = _spike_tables(1024, n_rays, dev)
+        tp, ip = dh.scalar_hit_plain(stab, *rays)
+        pairs = n_rays * 1024 * iters
+        bound, by = _bound(_scalar_ops(stab, rays, iters),
+                           4 * (4 * 1024 + 8 * n_rays))
+        for split in (None, *dh.SPLITS, None):
+            t, i = dh.scalar_hit(stab, *rays, iters=iters, split=split)
+            ms = _cuda_ms(lambda: dh.scalar_hit(stab, *rays, iters=iters,
+                                                split=split), reps)
+            print(json.dumps({
+                "item": "S1b split", "flags": list(flags), "shape": label,
+                "rays": n_rays, "iters": iters,
+                "split": split or f"default ({_cuda.scalar_split(n_rays)})",
+                "ms": ms, "gpairs_s": pairs / ms / 1e6, "bound_ms": bound,
+                "bound_by": by, "bitwise_equal_twin": bool(
+                    torch.equal(t, tp) and torch.equal(i, ip))}),
+                flush=True)
+
+
+def _s1b_child(flags: list, reps: int) -> None:
+    """_s1b_sweep with the library built with ``flags``."""
+    from rustraytrace_tpu_torch.ops import _cuda
+
+    _cuda.NVCC_FLAGS = _cuda.NVCC_FLAGS + tuple(flags)
+    _cuda.BUILD_DIR = os.path.join(_cuda.BUILD_DIR, "sweep")
+    _s1b_sweep(reps, flags)
 
 
 def _profiled(label: str, fn) -> None:
@@ -764,8 +1018,11 @@ def main() -> int:
                     help="run item 10 only")
     ap.add_argument("--mega-sweep", action="store_true",
                     help="run item 11 only")
+    ap.add_argument("--segments", action="store_true",
+                    help="run item 12 only")
     ap.add_argument("--mega-sweep-child", metavar="FLAGS",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--s1b-child", metavar="FLAGS", help=argparse.SUPPRESS)
     ap.add_argument("--ab-child", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--sweep-child", type=int, metavar="T",
@@ -779,6 +1036,9 @@ def main() -> int:
         return 0
     if args.sweep_child is not None:
         print(json.dumps(_sweep_child(args.sweep_child, args.reps)))
+        return 0
+    if args.s1b_child is not None:
+        _s1b_child(json.loads(args.s1b_child), args.reps)
         return 0
     if args.mega_sweep_child is not None:
         print(json.dumps(_mega_sweep_child(
@@ -809,6 +1069,9 @@ def main() -> int:
         return 0
     if args.mega_sweep:
         _mega_sweep(args.reps)
+        return 0
+    if args.segments:
+        _segments(args.reps)
         return 0
     dev = torch.device("cuda")
     spp, depth = args.spp, 50

@@ -15,7 +15,8 @@ paths on the card:
 * the Book-3 Cornell box again through ``render_pass_megakernel`` on the
   monolithic megakernel K4 (``respawn=False``, the JAX default);
 * the final scene again through ``render_pass_wavefront`` with
-  ``per_bounce_segments=True`` on the per-bounce segment kernel K5;
+  ``per_bounce_segments=True`` on the per-bounce segment kernel K5, which
+  banks and respawns on the device;
 * the flagship at 16 spp through ``render.render_image`` on the
   sphere_kernel route, whose closest hit is K1 at every bounce;
 * the spike script ``rustraytrace_tpu_torch.scripts.spike_dense_mxu`` on
@@ -42,15 +43,18 @@ on the three 400x225 scenes of its route), and a
 MIS scene with the Book-2 features; 10 K4 (the Book-3 path,
 == K3 bitwise at full configuration, == its twin, timed with its
 registers and lane-use share, the Cornell smoke); 11
-K5 (the final-scene path, == the persist render bitwise, one launch vs the
-twin at full lanes, earth); 12 SAH quad clusters (1,024 quads, camera
-inside); 13 the MIS isotropic branch (the smoke scene); 14 the sphere_kernel
-route (the reference ``trace_path`` with K1 every bounce: the flagship at 16
-spp, == the route with K1's twin, vs the reference route, BASELINE config 1,
-earth); 15 the reference route (the Book-3 Cornell box vs K3, and the
-scenes the kernels do not cover, on 'auto'); 16 S1, the dense spike's
+K5 (the final-scene path, == the persist render bitwise, with its
+segments, kernel launches and host syncs; six segments vs the twin at full
+lanes for both instances, one launch timed; earth); 12 SAH quad clusters
+(1,024 quads, camera inside); 13 the MIS isotropic branch (the smoke
+scene); 14 the sphere_kernel route (the reference ``trace_path`` with K1
+every bounce: the flagship at 16 spp, == the route with K1's twin, vs the
+reference route, BASELINE config 1, earth); 15 the reference route (the
+Book-3 Cornell box vs K3, and the scenes the kernels do not cover, on
+'auto'); 16 S1, the dense spike's
 tensor-core and scalar kernels (the port's spike script, then each kernel
-against its twin at the spike's shape and at 2^20 rays).  The plain twins
+against its twin at the spike's shape and at 2^20 rays, the scalar one at
+1, 4 and 32 lanes a ray too).  The plain twins
 run at reduced spp on the card (the line of each comparison states its
 size).
 
@@ -130,8 +134,10 @@ OPS = dict(sphere=30, box=25, quad=61, path_bounce=231, mis_bounce=317,
            light_pick=5, light_sample=(15, 76), light_pdf=(68, 50),
            box_row=30, medium=45, noise=134, texel=27,
            # S1 per (ray, sphere) pair (csrc/dense_hit.cu): the dense
-           # epilogue after the two products, and the scalar loop's test
-           dense_pair=22, scalar_pair=32)
+           # epilogue after the two products, and the scalar loop's test:
+           # 32 where the discriminant is positive, 18 where the kernel
+           # skips the root
+           dense_pair=22, scalar_pair=32, scalar_miss=18)
 # S1's products on the tensor cores: 495 TFLOP/s dense TF32 (H100 SXM)
 PEAK_TF32 = 495e12
 
@@ -263,8 +269,9 @@ def _registers(log: str) -> dict:
     ``path`` or ``mis`` (the segment kernel is ``path`` only); ``book2``
     for the motion, box, media and texture code, ``base`` without it;
     ``count`` for the work-counting instances, which no timed launch
-    runs; the megakernels' ``coop`` instances (``megakernel.cluster_cull``)
-    and the per-lane ``lane`` ones."""
+    runs; the megakernels' and the segment kernel's ``coop`` instances
+    (``megakernel.cluster_cull``) and the per-lane ``lane`` ones.  The
+    scalar S1 kernel's instances are named by their lanes a ray."""
     out, name, spill = {}, None, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -280,8 +287,11 @@ def _registers(log: str) -> dict:
                 base += "<moving>" if flags[0] else "<static>"
             elif len(flags) == 1:  # dense_hit_kernel<HIGHEST>
                 base += "<highest>" if flags[0] else "<default>"
-            if len(flags) == 2:  # segment_kernel<BOOK2, COUNT>
+            if base == "segment_kernel":  # <BOOK2, COUNT, COOP>
                 flags = [False] + flags
+            lanes = re.findall(r"ILi(\d+)E", mangled)
+            if base == "scalar_hit_kernel" and lanes:  # <K lanes a ray>
+                base += f"<{lanes[0]}>"
             if len(flags) >= 3:  # <MIS, BOOK2, COUNT[, COOP]>
                 mis, book2, count = flags[:3]
                 coop = "" if len(flags) == 3 else (
@@ -870,13 +880,66 @@ def _phase10(dev, p7: dict) -> dict:
                 paths_per_s=600 * 600 * 100 / wall)
 
 
+def _queued_ms(launches: list) -> float:
+    """Mean device milliseconds of a list of calls, each one kernel
+    launch, queued behind a ~0.1 s device sleep so that the host's launch
+    overhead does not open gaps between them."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for fn in launches:
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / len(launches)
+
+
+def _k5_vs_twin(tab, seed: int, *, spp: int, depth: int, segments: int):
+    """K5 against its twin from the start of a pass (every lane at sample
+    0), segment by segment: each segment's state, sums, done, sample index
+    and alive count bitwise.  Returns (equal, max |diff| over the state
+    and sums, plain ms of the first segment, lanes that died in the first
+    segment, lanes that respawned, the sum of the banked radiance)."""
+    import torch
+
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    kw = dict(spp=spp, max_depth=depth)
+    kern = list(wf.segment_start(tab, seed, 0))
+    plain = [t.clone() for t in kern]
+    eq, err, plain_ms, died = True, 0.0, None, 0
+    for g in range(segments):
+        ak = torch.zeros(1, dtype=torch.int32, device=kern[0].device)
+        ap = ak.clone()
+        wf.segment_step(*kern, tab, seed, alive=ak, **kw)
+        _, ms = _cuda_ms_once(lambda: wf.segment_step_plain(
+            *plain, tab, seed, alive=ap, **kw))
+        if g == 0:
+            plain_ms, died = ms, int((plain[2] > 0).sum())
+        eq = eq and all(torch.equal(k, p) for k, p in zip(kern, plain))
+        eq = eq and bool(torch.equal(ak, ap))
+        err = max(err, torch.abs(kern[0] - plain[0]).max().item(),
+                  torch.abs(kern[1] - plain[1]).max().item())
+    return (eq, err, plain_ms, died, int((kern[3] > 0).sum()),
+            float(kern[1].sum()))
+
+
 def _phase11(dev, r9: dict) -> dict:
-    """K5, the per-bounce segment kernel: the final scene through
+    """K5, the fused segment kernel (one bounce, then the bank and respawn
+    of the lanes that die in it): the final scene through
     ``render_pass_wavefront(per_bounce_segments=True)`` at its full
-    configuration, bitwise equal to phase 9's persist-loop render; one K5
-    launch at the main path's lanes vs the twin; segmented == unsorted K2
-    == K3 at 2 spp; earth at its own configuration, == its image-route
-    pass.  Returns the numbers of the kernels line."""
+    configuration, bitwise equal to phase 9's persist-loop render, with
+    its segments, kernel launches, host syncs (at most one a chunk, plus
+    two) and wall; K5 vs its twin over the first six segments of a pass at
+    the main path's lanes (the cooperative instance) and at earth's (the
+    per-lane one), bitwise; one K5 launch timed at the first bounce, with
+    the counting instance's bound; segmented == unsorted K2 == K3 at 2
+    spp; earth at its own configuration, == its image-route pass.  Returns
+    the numbers of the kernels line."""
     import torch
 
     from rustraytrace_tpu_torch import models, render
@@ -887,93 +950,115 @@ def _phase11(dev, r9: dict) -> dict:
     s9, c9, cam9, tab = r9["scene"], r9["cfg"], r9["cam"], r9["tables"]
     w9, h9, spp9, d9, seed = (c9.image_width, c9.image_height,
                               c9.samples_per_pixel, c9.max_depth, c9.seed)
-    stats: dict = {}
-    _cuda.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = wf.render_pass_wavefront(
-        s9, cam9, seed, width=w9, height=h9, spp=spp9, max_depth=d9,
-        per_bounce_segments=True, device=dev, stats=stats)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _cuda.launch_counts()
+
+    def segmented(scene, cam, cfg):
+        stats: dict = {}
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wf.render_pass_wavefront(
+            scene, cam, cfg.seed, width=cfg.image_width,
+            height=cfg.image_height, spp=cfg.samples_per_pixel,
+            max_depth=cfg.max_depth, per_bounce_segments=True, device=dev,
+            stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        n = stats["launches"]
+        _check(counts["segment"] == stats["kernel_launches"] >= n > 0
+               and sum(counts.values()) == counts["segment"],
+               "the segment path did not run K5 alone")
+        _check(stats["host_syncs"] <= -(-n // stats["chunk"]) + 2,
+               "the segment loop syncs more than once a chunk")
+        return out, wall, stats, counts
+
+    img, wall, stats, counts = segmented(s9, cam9, c9)
     img = img.cpu().numpy()
     eq_main = bool(np.array_equal(img, r9["accum"]))
     ch, z = _agreement(img / spp9, r9["plain4"] / 4.0)
     print(f"[11 K5 the_next_week] {w9}x{h9} {spp9} spp depth {d9} through "
-          f"render_pass_wavefront(per_bounce_segments=True): {wall:.3f} s, "
-          f"{w9 * h9 * spp9 / wall:.6g} paths/s, {stats['launches']} "
-          f"segments ({1e3 * wall / stats['launches']:.3f} ms each); kernel "
-          f"launch counts {counts}; image == phase 9's persist render "
-          f"bitwise (required): {eq_main}; vs 4 spp plain: channel mean "
-          f"|diff| {ch:.4g}, 4x4 block max |z| {z:.3f} (need < 5)",
+          f"render_pass_wavefront(per_bounce_segments=True): {wall:.4f} s, "
+          f"{w9 * h9 * spp9 / wall:.6g} paths/s; {stats['launches']} "
+          f"segments, {stats['kernel_launches']} kernel launches, "
+          f"{stats['host_syncs']} host syncs (chunks of {stats['chunk']}); "
+          f"kernel launch counts {counts}; image == phase 9's persist "
+          f"render bitwise (required): {eq_main}; vs 4 spp plain: channel "
+          f"mean |diff| {ch:.4g}, 4x4 block max |z| {z:.3f} (need < 5)",
           flush=True)
-    _check(counts["segment"] == stats["launches"] > 0
-           and sum(counts.values()) == counts["segment"],
-           "the final scene's segment path did not run K5 alone")
     _check(eq_main and z < 5.0, "the segmented final scene is off")
 
     R = tab.n_lanes
-    slot = torch.arange(R, dtype=torch.int64, device=dev)
-    sample = torch.zeros(R, dtype=torch.int64, device=dev)
-    v = wf.spawn_lanes(tab, slot, sample, wf.seed_key(seed))
-    zero = torch.zeros(R, device=dev)
-    st0 = torch.stack([v.get(k, zero) for k in wf._SEG_NAMES])
-    s32 = sample.to(torch.int32)
-    st_k, st_p = st0.clone(), st0.clone()
-    wf.segment_step(st_k, s32, tab, seed, max_depth=d9)
-    _, plain_ms = _cuda_ms_once(
-        lambda: wf.segment_step_plain(st_p, s32, tab, seed, max_depth=d9))
-    eq1 = bool(torch.equal(st_k, st_p))
-    err = torch.abs(st_k - st_p).max().item()
-    ms = _cuda_ms(lambda: wf.segment_step(st0.clone(), s32, tab, seed,
-                                          max_depth=d9), 10)
-    copy_ms = _cuda_ms(lambda: st0.clone(), 10)
+    coop = mk.cluster_cull(tab)
+    eq1, err, plain_ms, died, spawned, banked = _k5_vs_twin(
+        tab, seed, spp=spp9, depth=d9, segments=6)
+    kw = dict(spp=spp9, max_depth=d9)
+    start = wf.segment_start(tab, seed, 0)
+    copies = [[t.clone() for t in start] for _ in range(10)]
+    alive = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = _queued_ms([lambda c=c: wf.segment_step(*c, tab, seed, alive=alive,
+                                                 **kw) for c in copies])
+    del copies
     work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=dev)
-    wf.segment_step(st0.clone(), s32, tab, seed, max_depth=d9, work=work)
-    # the 15-row state read and written once, the sample index read once
-    bound, by = _bound(_path_ops(work, tab), R * (2 * wf.N_SEG + 1) * 4)
+    wf.segment_step(*[t.clone() for t in start], tab, seed, work=work, **kw)
+    live = int((start[0][wf.R_ALIVE] > 0).sum())
+    # a live lane's 15 state words in and out and its sample index in; a
+    # lane that dies its sums and count in and out and its sample index out
+    bound, by = _bound(_path_ops(work, tab),
+                       4 * (live * (2 * wf.N_SEG + 1) + died * 9))
     seg2 = wf._wavefront_pass_segments(tab, seed, 0, spp=2, max_depth=d9)
     eq2 = bool(torch.equal(seg2, r9["uniform2"])
                and torch.equal(seg2, r9["k3_2"]))
-    print(f"[11 K5 check] one launch at {R} lanes (first bounce of sample "
-          f"0): kernel vs plain max |diff| {err:.3g}, bitwise equal "
-          f"(required): {eq1}; kernel {ms - copy_ms:.4f} ms (with the "
-          f"state copy {ms:.4f} ms), plain {plain_ms:.1f} ms; work "
-          f"{_work(work)}, bound {bound:.4f} ms ({by}); 2 spp segmented == "
-          f"unsorted K2 == K3 bitwise (required): {eq2}", flush=True)
+    print(f"[11 K5 check] {R} lanes, {'cooperative' if coop else 'per-lane'}"
+          f" instance: six segments from the pass's start (lanes bank and "
+          f"respawn: {died} bank in the first, {spawned} respawned after "
+          f"six, banked sum {banked:.6g}) vs the twin, state, sums, count, "
+          f"sample index and alive counts bitwise equal (required): {eq1}, "
+          f"max |diff| {err:.3g}; one launch at the first bounce "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms; work {_work(work)}, bound "
+          f"{bound:.4f} ms ({by}); 2 spp segmented == unsorted K2 == K3 "
+          f"bitwise (required): {eq2}", flush=True)
+    _check(coop, "the final scene should run K5's cooperative instance")
     _check(eq1 and eq2, "K5 differs from its twin or from K2 / K3")
+    _check(died > 0 and spawned > 0 and banked > 0,
+           "no lane banked and respawned in K5's six-segment check")
 
     sE, cE, _ = models.book2_earth()
     wE, hE, sppE, dE = (cE.image_width, cE.image_height,
                         cE.samples_per_pixel, cE.max_depth)
     camE = derive_camera(cE, device=dev)
-    statsE: dict = {}
-    _cuda.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    segE = wf.render_pass_wavefront(
-        sE, camE, cE.seed, width=wE, height=hE, spp=sppE, max_depth=dE,
-        per_bounce_segments=True, device=dev, stats=statsE)
-    torch.cuda.synchronize()
-    wallE = time.perf_counter() - t0
-    countsE = _cuda.launch_counts()
+    segE, wallE, statsE, countsE = segmented(sE, camE, cE)
     t0 = time.perf_counter()
     perE = render.render_pass(sE, camE, cE.seed, width=wE, height=hE,
                               spp=sppE, max_depth=dE, device=dev)
     torch.cuda.synchronize()
     wallP = time.perf_counter() - t0
     eqE = bool(torch.equal(segE, perE))
+    tabE = mk.prepare_megakernel_cached(
+        sE, camE, width=wE, height=hE, tile_rows=wf.wavefront_tile_rows(sE),
+        device=dev)
+    eqE1, errE, _, diedE, spawnedE, bankedE = _k5_vs_twin(
+        tabE, cE.seed, spp=sppE, depth=dE, segments=6)
     print(f"[11 K5 book2_earth] {wE}x{hE} {sppE} spp depth {dE}: segmented "
-          f"{wallE:.3f} s ({statsE['launches']} segments, launch counts "
-          f"{countsE}), image-route persist pass {wallP:.3f} s; bitwise "
-          f"equal (required): {eqE}", flush=True)
-    _check(countsE["segment"] == statsE["launches"] > 0 and eqE,
-           "the segmented earth differs or did not run K5")
-    return dict(launches=counts["segment"], err=err, ms=ms - copy_ms,
+          f"{wallE:.4f} s ({statsE['launches']} segments, "
+          f"{statsE['kernel_launches']} kernel launches, "
+          f"{statsE['host_syncs']} host syncs), image-route persist pass "
+          f"{wallP:.4f} s; bitwise equal (required): {eqE}; "
+          f"{'cooperative' if mk.cluster_cull(tabE) else 'per-lane'} "
+          f"instance at {tabE.n_lanes} lanes, six segments vs the twin "
+          f"({diedE} lanes bank in the first, {spawnedE} respawned after "
+          f"six, banked sum {bankedE:.6g}) bitwise equal (required): "
+          f"{eqE1}, max |diff| {errE:.3g}", flush=True)
+    _check(not mk.cluster_cull(tabE), "earth should run the per-lane K5")
+    _check(eqE and eqE1, "the segmented earth differs")
+    _check(diedE > 0 and spawnedE > 0 and bankedE > 0,
+           "no earth lane banked and respawned in K5's six-segment check")
+    return dict(launches=counts["segment"], err=max(err, errE), ms=ms,
                 plain_ms=plain_ms, bound=bound, by=by, work=_work(work),
-                R=R, wall=wall, segments=stats["launches"], earth_s=wallE,
-                earth_persist_s=wallP, paths_per_s=w9 * h9 * spp9 / wall)
+                R=R, wall=wall, segments=stats["launches"],
+                host_syncs=stats["host_syncs"], chunk=stats["chunk"],
+                earth_s=wallE, earth_persist_s=wallP,
+                earth_segments=statsE["launches"],
+                paths_per_s=w9 * h9 * spp9 / wall)
 
 
 def _phase12(dev) -> dict:
@@ -1325,15 +1410,38 @@ def _dense_exact(dtab, rays):
     return torch.cat(bt), torch.cat(bi).to(torch.int32)
 
 
+def _scalar_ops(stab, rays, iters: int) -> float:
+    """Operations of the scalar S1 kernel on these inputs: per scan, 32 a
+    pair whose discriminant is positive and 18 a pair whose root the
+    kernel skips (its arithmetic, evaluated in chunks of rays)."""
+    import torch
+
+    ns = stab.shape[1]
+    cx, cy, cz, r2 = (stab[k, None, :] for k in range(4))
+    pos = 0
+    for lo in range(0, rays[0].numel(), 16384):
+        x, y, z, dx, dy, dz = (r.reshape(-1)[lo:lo + 16384, None]
+                               for r in rays)
+        ocx, ocy, ocz = cx - x, cy - y, cz - z
+        h = dx * ocx + dy * ocy + dz * ocz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - r2
+        disc = h * h - (dx * dx + dy * dy + dz * dz) * c
+        pos += int((disc > 0.0).sum())
+    miss = rays[0].numel() * ns - pos
+    return iters * (pos * OPS["scalar_pair"] + miss * OPS["scalar_miss"])
+
+
 def _phase16(dev) -> dict:
     """S1: the port's spike script (both precisions), then both kernels
     against their twins at the spike's shape (1,024 spheres, 4,096 rays,
     200 iterations) and at 2^20 rays x 1,024 spheres x 1 iteration:
-    scalar bitwise; dense 'highest' winner and hit mask on >= 99.9% of
-    rays and |dt| <= 1e-2 (every ray at the spike's shape, >= 99.9% at
-    2^20, where exactly rounded products differ from the twin by more on
-    near-tangent rays; their max is printed beside).  Returns the numbers
-    of the two entries."""
+    scalar bitwise at the split it picks and at 1, 4 and 32 lanes a ray,
+    and slower than its counted bound (all the work done); dense
+    'highest' winner and hit mask on >= 99.9% of rays and |dt| <= 1e-2
+    (every ray at the spike's shape, >= 99.9% at 2^20, where exactly
+    rounded products differ from the twin by more on near-tangent rays;
+    their max is printed beside).  Returns the numbers of the two
+    entries."""
     import contextlib
     import io
 
@@ -1373,10 +1481,19 @@ def _phase16(dev) -> dict:
         ts_p, is_p = dh.scalar_hit_plain(stab, *rays)
         s_plain = _cuda_ms(lambda: dh.scalar_hit_plain(stab, *rays), 1)
         s_eq = bool(torch.equal(ts_k, ts_p) and torch.equal(is_k, is_p))
+        s_err = torch.abs(ts_k - ts_p).max().item()
+        # the split forced: every one gives the twin's result
+        split = _cuda.scalar_split(n_rays)
+        s_split_eq = {}
+        for k in (1, 4, 32):
+            tk, ik = dh.scalar_hit(stab, *rays, iters=iters, split=k)
+            s_split_eq[k] = bool(torch.equal(tk, ts_p)
+                                 and torch.equal(ik, is_p))
+            s_err = max(s_err, torch.abs(tk - ts_p).max().item())
         s_ms = _cuda_ms(lambda: dh.scalar_hit(stab, *rays, iters=iters), 3)
         pairs = n_rays * ns * iters
         row = dict(s_eq=s_eq, s_ms=s_ms, s_plain=s_plain, pairs=pairs,
-                   s_err=torch.abs(ts_k - ts_p).max().item())
+                   s_err=s_err, split=split, s_split_eq=s_split_eq)
         for prec in ("highest", "default"):
             td, id_ = dh.dense_hit(dtab, *rays, iters=iters, precision=prec)
             tp, ip = dh.dense_hit_plain(dtab, *rays, precision=prec)
@@ -1409,10 +1526,13 @@ def _phase16(dev) -> dict:
                                4 * (8 * ns + 8 * n_rays))
         if t_mma > d_bound:
             d_bound, d_by = t_mma, "operations"
-        s_bound, s_by = _bound(pairs * OPS["scalar_pair"],
-                               4 * (4 * ns + 8 * n_rays))
+        s_bytes = 4 * (4 * ns + 8 * n_rays)
+        s_bound, s_by = _bound(_scalar_ops(stab, rays, iters), s_bytes)
+        # the floor that proves every pair was computed: 32 operations a
+        # pair, as if no root were skipped (above the counted bound)
+        s_floor, _ = _bound(pairs * OPS["scalar_pair"], s_bytes)
         row.update(floor=floor, d_bound=d_bound, d_by=d_by, t_mma=t_mma,
-                   s_bound=s_bound, s_by=s_by)
+                   s_bound=s_bound, s_by=s_by, s_floor=s_floor)
         hi = row["highest"]
         for prec in ("highest", "default"):
             r = row[prec]
@@ -1426,13 +1546,19 @@ def _phase16(dev) -> dict:
                   f"{r['vs_scalar'][2]:.3e}; dense {r['ms']:.3f} ms = "
                   f"{pairs / r['ms'] / 1e6:.1f} Gpairs/s (twin, one scan, "
                   f"{r['plain']:.1f} ms)", flush=True)
-        print(f"[16 S1 {label}, scalar] kernel {s_ms:.3f} ms = "
-              f"{pairs / s_ms / 1e6:.1f} Gpairs/s, twin (one scan) "
-              f"{row['s_plain']:.1f} ms; bitwise equal to the twin "
-              f"(required): {s_eq}; bounds: dense {d_bound:.4f} ms "
-              f"({d_by}; tensor cores alone {t_mma:.4f} ms), scalar "
-              f"{s_bound:.4f} ms ({s_by})", flush=True)
-        _check(s_eq, f"S1 scalar differs from its twin ({label})")
+        print(f"[16 S1 {label}, scalar] kernel ({split} lanes a ray) "
+              f"{s_ms:.4f} ms = {pairs / s_ms / 1e6:.1f} Gpairs/s, twin "
+              f"(one scan) {row['s_plain']:.1f} ms; bitwise equal to the "
+              f"twin (required): {s_eq}, with 1 / 4 / 32 lanes a ray: "
+              f"{s_split_eq}; bounds: dense {d_bound:.4f} ms ({d_by}; "
+              f"tensor cores alone {t_mma:.4f} ms), scalar {s_bound:.4f} ms "
+              f"({s_by}, {pairs / s_bound / 1e6:.1f} Gpairs/s), every "
+              f"pair at 32 operations {s_floor:.4f} ms (required below the "
+              f"kernel's time)", flush=True)
+        _check(s_eq and all(s_split_eq.values()),
+               f"S1 scalar differs from its twin ({label})")
+        _check(s_ms > s_floor, f"S1 scalar ran under the time of every "
+               f"pair at 32 operations ({label}): work was skipped")
         _check(hi["mask"] >= 0.999 and hi["idx"] >= 0.999
                and (hi["dt_max"] <= 1e-2 if label == "spike"
                     else hi["within"] >= 0.999),
@@ -1946,10 +2072,14 @@ def main() -> int:
                     max_abs_err=r11["err"], ms=r11["ms"],
                     plain_ms=r11["plain_ms"], bound_ms=r11["bound"],
                     bound_by=r11["by"], library_ms=None, work=r11["work"],
-                    ms_shape=f"{r11['R']} lanes, one bounce, the_next_week",
-                    plain_ms_shape=f"{r11['R']} lanes, one bounce, "
+                    ms_shape=f"{r11['R']} lanes, the first segment (one "
+                             "bounce, bank, respawn), the_next_week",
+                    plain_ms_shape=f"{r11['R']} lanes, the first segment, "
                                    "the_next_week",
-                    path_seconds=r11["wall"], segments=r11["segments"])]
+                    path_seconds=r11["wall"], segments=r11["segments"],
+                    host_syncs=r11["host_syncs"], chunk=r11["chunk"],
+                    earth_seconds=r11["earth_s"],
+                    earth_segments=r11["earth_segments"])]
     for name, key, src in (("dense_hit", "highest", 28),
                            ("scalar_hit", None, 111)):
         sp, big = s1["spike"], s1["2^20"]
@@ -1978,8 +2108,10 @@ def main() -> int:
             row.update(max_abs_err=max(sp["s_err"], big["s_err"]),
                        ms=sp["s_ms"], plain_ms=sp["s_plain"],
                        bound_ms=sp["s_bound"], bound_by=sp["s_by"],
-                       ms_2p20=big["s_ms"], plain_ms_2p20=big["s_plain"],
-                       bound_ms_2p20=big["s_bound"])
+                       lanes_a_ray=sp["split"], ms_2p20=big["s_ms"],
+                       plain_ms_2p20=big["s_plain"],
+                       bound_ms_2p20=big["s_bound"],
+                       lanes_a_ray_2p20=big["split"])
         kernels.append(row)
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
           f"started", flush=True)

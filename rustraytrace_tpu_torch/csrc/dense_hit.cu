@@ -8,11 +8,29 @@
 // over the sphere table (-1 and BIG when there is none), repeated `iters`
 // times with the best carried across, as the spike does.
 //
-// scalar_hit_kernel: one thread per ray, a loop over the [4, NS] table (cx,
-// cy, cz, r^2) with the half-b quadric in the order of rtt_common.cuh's
-// sphere_root and a strict "<".  Bound: ~30 FP32 operations per (ray,
-// sphere) pair; the table is read at one address by a whole warp (an L1
-// broadcast).  With -fmad=false it is bitwise equal to its twin.
+// scalar_hit_kernel: the [4, NS] table (cx, cy, cz, r^2) and the half-b
+// quadric in the order of rtt_common.cuh's sphere_root, a strict "<" in
+// table order.  Bound: ~32 FP32 operations per (ray, sphere) pair.  With
+// -fmad=false it is bitwise equal to its twin.  The design fills the card
+// whatever the ray count:
+//
+// * K lanes a ray (K a power of two up to 32, a template flag).  The
+//   wrapper picks the least K whose grid covers one resident wave of the
+//   card (rtt_scalar_split: the SM count times the blocks an SM holds, from
+//   the occupancy query), so the spike's 4,096 rays run on 32 lanes each
+//   and 2^20 rays on one.  Lane p of a ray scans spheres p, p + K, ...,
+//   keeping its first strict minimum, and a shuffle takes the K lanes'
+//   lexicographic minimum of (t, index), as path.cuh's warp_min_lex does:
+//   the least root at the lowest index, which is what the strict "<" in
+//   table order gives, so the result does not depend on K.
+// * The table is staged in shared memory as float4 rows, 1,024 spheres (16
+//   KB) at a time, and each row is read there by the lanes that test it.
+// * Every pair of every scan is tested: the `iters` repeats stay (they
+//   cannot change the winner, but they are the spike's work).  A pair
+//   with disc <= 0 skips the root and sqrt, which the take does not need
+//   (it needs disc > 0): at the spike's shape that took 1.69 to 1.04 ms,
+//   at 2^20 rays 1.95 to 0.92 ms (chip_measure.py --segments, which
+//   builds the other form with -DRTT_SCALAR_SKIP_MISS=0).
 //
 // dense_hit_kernel: the two K=4 products of the expanded quadric,
 // dC = C . d and m = C . o - (C^2 - r^2) / 2, on the tensor cores with
@@ -39,44 +57,91 @@ constexpr float T_MIN = 1e-3f;
 constexpr float T_MAX = 1e30f;
 constexpr float BIG = 3e38f;
 
-__global__ void scalar_hit_kernel(const float* __restrict__ tab, int ns,
-                                  const float* __restrict__ ox,
-                                  const float* __restrict__ oy,
-                                  const float* __restrict__ oz,
-                                  const float* __restrict__ dx,
-                                  const float* __restrict__ dy,
-                                  const float* __restrict__ dz, int iters,
-                                  float* __restrict__ bt_out,
-                                  int* __restrict__ bi_out, int n_rays) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float x = ox[i], y = oy[i], z = oz[i];
-  const float ddx = dx[i], ddy = dy[i], ddz = dz[i];
+#ifndef RTT_SCALAR_SKIP_MISS
+#define RTT_SCALAR_SKIP_MISS 1
+#endif
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int NO_ROW = 0x7fffffff;
+constexpr int SBLOCK = 256;  // threads a block of the scalar kernel
+constexpr int STILE = 1024;  // spheres staged in shared memory at a time
+
+template <int K>
+__global__ void __launch_bounds__(SBLOCK) scalar_hit_kernel(
+    const float* __restrict__ tab, int ns, const float* __restrict__ ox,
+    const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, int iters, float* __restrict__ bt_out,
+    int* __restrict__ bi_out, int n_rays) {
+  __shared__ float4 sm[STILE];
+  const int t = blockIdx.x * SBLOCK + threadIdx.x;
+  const int ray = t / K, part = t % K;
+  // a thread past the last ray still stages the table and joins the
+  // shuffle; it writes nothing
+  const bool valid = ray < n_rays;
+  const int r = valid ? ray : 0;
+  const float x = ox[r], y = oy[r], z = oz[r];
+  const float ddx = dx[r], ddy = dy[r], ddz = dz[r];
   const float a = ddx * ddx + ddy * ddy + ddz * ddz;
   const float inv_a = 1.0f / a;
   float bt = BIG;
-  int bi = -1;
-  for (int it = 0; it < iters; ++it) {
+  int bi = NO_ROW;
+  for (int s0 = 0; s0 < ns; s0 += STILE) {
+    const int m = min(STILE, ns - s0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < m; j += SBLOCK)
+      sm[j] = make_float4(tab[s0 + j], tab[ns + s0 + j],
+                          tab[2 * ns + s0 + j], tab[3 * ns + s0 + j]);
+    __syncthreads();
+    // the repeats inside the tile: each lane still sees its spheres in
+    // increasing index order, so the first strict minimum is the same
+    for (int it = 0; it < iters; ++it) {
 #pragma unroll 4
-    for (int s = 0; s < ns; ++s) {
-      const float ocx = tab[s] - x;
-      const float ocy = tab[ns + s] - y;
-      const float ocz = tab[2 * ns + s] - z;
-      const float h = ddx * ocx + ddy * ocy + ddz * ocz;
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - tab[3 * ns + s];
-      const float disc = h * h - a * c;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float tn = (h - sq) * inv_a;
-      const float tf = (h + sq) * inv_a;
-      const float root = (tn > T_MIN && tn < T_MAX) ? tn : tf;
-      if (disc > 0.0f && root > T_MIN && root < T_MAX && root < bt) {
-        bt = root;
-        bi = s;
+      for (int j = part; j < m; j += K) {
+        const float4 g = sm[j];
+        const float ocx = g.x - x;
+        const float ocy = g.y - y;
+        const float ocz = g.z - z;
+        const float h = ddx * ocx + ddy * ocy + ddz * ocz;
+        const float c = ocx * ocx + ocy * ocy + ocz * ocz - g.w;
+        const float disc = h * h - a * c;
+        if (RTT_SCALAR_SKIP_MISS && !(disc > 0.0f)) continue;
+        const float sq = sqrtf(fmaxf(disc, 0.0f));
+        const float tn = (h - sq) * inv_a;
+        const float tf = (h + sq) * inv_a;
+        const float root = (tn > T_MIN && tn < T_MAX) ? tn : tf;
+        if (disc > 0.0f && root > T_MIN && root < T_MAX && root < bt) {
+          bt = root;
+          bi = s0 + j;
+        }
       }
     }
   }
-  bt_out[i] = bt;
-  bi_out[i] = bi;
+  // the lexicographic minimum of (t, index) over the ray's K lanes, which
+  // are K consecutive lanes of one warp
+#pragma unroll
+  for (int off = K / 2; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(FULL_MASK, bt, off);
+    const int oi = __shfl_xor_sync(FULL_MASK, bi, off);
+    if (ot < bt || (ot == bt && oi < bi)) {
+      bt = ot;
+      bi = oi;
+    }
+  }
+  if (valid && part == 0) {
+    bt_out[ray] = bt;
+    bi_out[ray] = bi == NO_ROW ? -1 : bi;
+  }
+}
+
+template <int K>
+void scalar_launch(const float* tab, int ns, const float* ox,
+                   const float* oy, const float* oz, const float* dx,
+                   const float* dy, const float* dz, int iters, float* bt,
+                   int* bi, int n_rays, cudaStream_t st) {
+  const long long threads = (long long)n_rays * K;
+  const int grid = (int)((threads + SBLOCK - 1) / SBLOCK);
+  scalar_hit_kernel<K><<<grid, SBLOCK, 0, st>>>(tab, ns, ox, oy, oz, dx, dy,
+                                                 dz, iters, bt, bi, n_rays);
 }
 
 // round to TF32, nearest with ties away (the tensor cores read the top 19
@@ -207,16 +272,49 @@ __global__ void dense_hit_kernel(const float* __restrict__ dtab, int ns,
 
 }  // namespace
 
+// The lanes a ray of the scalar kernel for n_rays rays: the least power
+// of two up to 32 whose grid covers one resident wave (the SMs times the
+// blocks of SBLOCK threads an SM holds); negative on a CUDA error.
+extern "C" int rtt_scalar_split(int n_rays) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scalar_hit_kernel<1>, SBLOCK, 0);
+  if (e != cudaSuccess) return -(int)e;
+  const long long wave = (long long)sms * per_sm * SBLOCK;
+  int k = 1;
+  while (k < 32 && (long long)n_rays * k < wave) k *= 2;
+  return k;
+}
+
+// `split` lanes a ray: 1, 2, 4, 8, 16 or 32 (the wrapper checks it)
 extern "C" int rtt_scalar_hit(const float* tab, int ns, const float* ox,
                               const float* oy, const float* oz,
                               const float* dx, const float* dy,
-                              const float* dz, int iters, float* bt_out,
-                              int* bi_out, int n_rays, void* stream) {
+                              const float* dz, int iters, int split,
+                              float* bt_out, int* bi_out, int n_rays,
+                              void* stream) {
   if (n_rays > 0) {
-    const int block = 128;
-    const int grid = (n_rays + block - 1) / block;
-    scalar_hit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        tab, ns, ox, oy, oz, dx, dy, dz, iters, bt_out, bi_out, n_rays);
+    const cudaStream_t st = (cudaStream_t)stream;
+#define RTT_SCALAR_CASE(K)                                                \
+  case K:                                                                 \
+    scalar_launch<K>(tab, ns, ox, oy, oz, dx, dy, dz, iters, bt_out,      \
+                     bi_out, n_rays, st);                                 \
+    break;
+    switch (split) {
+      RTT_SCALAR_CASE(1)
+      RTT_SCALAR_CASE(2)
+      RTT_SCALAR_CASE(4)
+      RTT_SCALAR_CASE(8)
+      RTT_SCALAR_CASE(16)
+      RTT_SCALAR_CASE(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef RTT_SCALAR_CASE
   }
   return (int)cudaGetLastError();
 }

@@ -86,14 +86,15 @@ KERNELS = {
                          (_P, _I, _P, _I, _I, _I, _P, _I, _P)),
     # out, R, &PathParams, mis, book2, coop, queue, grid, stream
     "mono": Kernel("rtt_mono_pass", (_P, _I, _P, _I, _I, _I, _P, _I, _P)),
-    # state, sample, R, &PathParams, book2, stream
-    "segment": Kernel("rtt_segment_step", (_P, _P, _I, _P, _I, _P)),
+    # state, sums, done, sample, R, &PathParams, book2, coop, alive, stream
+    "segment": Kernel("rtt_segment_step",
+                      (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P)),
     # dtab, NS, ox, oy, oz, dx, dy, dz, iters, highest, bt, bi, R, stream
     "dense_hit": Kernel("rtt_dense_hit", (
         _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P)),
-    # tab, NS, ox, oy, oz, dx, dy, dz, iters, bt, bi, R, stream
+    # tab, NS, ox, oy, oz, dx, dy, dz, iters, split, bt, bi, R, stream
     "scalar_hit": Kernel("rtt_scalar_hit", (
-        _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P)),
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P)),
 }
 
 # the megakernels' launch-shape queries: (mis, book2, count, coop, &block)
@@ -191,6 +192,8 @@ def library() -> ctypes.CDLL:
             lib.rtt_error_string.argtypes = [ctypes.c_int]
             lib.rtt_params_size.restype = ctypes.c_int
             lib.rtt_params_size.argtypes = []
+            lib.rtt_scalar_split.restype = ctypes.c_int
+            lib.rtt_scalar_split.argtypes = [_I]
             for fn in _SHAPES.values():
                 getattr(lib, fn).restype = ctypes.c_int
                 getattr(lib, fn).argtypes = [_I, _I, _I, _I,
@@ -215,6 +218,16 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"error {err} ({msg})")
     k.launches += 1
+
+
+def scalar_split(n_rays: int) -> int:
+    """Lanes a ray that the scalar closest-hit kernel takes by default for
+    ``n_rays`` rays on the current device (csrc/dense_hit.cu
+    rtt_scalar_split); raises on a CUDA error."""
+    k = library().rtt_scalar_split(int(n_rays))
+    if k <= 0:
+        raise RuntimeError(f"rtt_scalar_split failed: error {-k}")
+    return k
 
 
 def megakernel_shape(name: str, mis: bool, book2: bool, count: bool,

@@ -10,9 +10,11 @@ change nothing (a strict ``<`` keeps the first winner), so the plain twins
 scan once and the kernels repeat as the spike does, for timing.
 
 * ``scalar_hit``: the [4, NS] table (cx, cy, cz, r^2) and the half-b
-  quadric with ``oc`` subtracted first, one ray per thread
-  (``csrc/dense_hit.cu`` ``scalar_hit_kernel``); ``scalar_hit_plain`` is
-  the same arithmetic over chunks of spheres, bitwise equal on the card.
+  quadric with ``oc`` subtracted first (``csrc/dense_hit.cu``
+  ``scalar_hit_kernel``), ``split`` lanes a ray, each scanning a strided
+  share of the table, then a lexicographic (t, index) minimum over them;
+  ``scalar_hit_plain`` is the same arithmetic over chunks of spheres,
+  bitwise equal on the card for every split.
 * ``dense_hit``: the [8, NS] dense table (cx, cy, cz, (C^2 - r^2) / 2,
   then four zero rows) and the expanded quadric, whose two K=4 products
   ``C . [d; 0]`` and ``C . [o; -1]`` run on the tensor cores
@@ -37,6 +39,7 @@ T_MIN = 1e-3
 T_MAX = 1e30
 BIG = 3e38
 PRECISIONS = ("highest", "default")
+SPLITS = (1, 2, 4, 8, 16, 32)  # lanes a ray of the scalar kernel
 _SPHERE_CHUNK = 64
 _RAY_CHUNK = 65536
 
@@ -156,15 +159,23 @@ def _launch(name: str, tab, planes, iters: int, *flag):
     return bt, bi
 
 
-def scalar_hit(tab, ox, oy, oz, dx, dy, dz, iters: int = 1):
+def scalar_hit(tab, ox, oy, oz, dx, dy, dz, iters: int = 1,
+               split: int | None = None):
     """Closest sphere of each ray over ``tab`` [4, NS] (cx, cy, cz, r^2),
     ``iters`` scans: (t, idx) of the rays' shape.  CUDA tensors launch
-    ``scalar_hit_kernel``; CPU tensors run ``scalar_hit_plain``."""
+    ``scalar_hit_kernel`` with ``split`` lanes a ray (one of ``SPLITS``;
+    by default the least that fills the card, ``_cuda.scalar_split``);
+    CPU tensors run ``scalar_hit_plain``.  The result does not depend on
+    ``split``."""
     planes = (ox, oy, oz, dx, dy, dz)
-    _check_rays(planes, tab, 4)
+    _, n = _check_rays(planes, tab, 4)
+    if split is not None and split not in SPLITS:
+        raise ValueError(f"split {split}; have {SPLITS}")
     if ox.device.type == "cpu":
         return scalar_hit_plain(tab, *planes, iters=iters)
-    return _launch("scalar_hit", tab, planes, iters)
+    if split is None:
+        split = _cuda.scalar_split(n)
+    return _launch("scalar_hit", tab, planes, iters, int(split))
 
 
 def dense_hit(dtab, ox, oy, oz, dx, dy, dz, iters: int = 1,

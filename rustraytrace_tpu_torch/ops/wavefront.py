@@ -12,8 +12,9 @@ scenes of >= 256 primitives); other scenes on ``sorted_persist_route``
 (>= 256 primitives, at most 2 Mi slot lanes) run the sorted persist launch
 loop; every other scene goes to the respawn megakernel K3
 (``ops/megakernel.py``).  With ``per_bounce_segments`` an image scene runs
-the segment loop instead: one K5 launch per bounce of every live lane, with
-the bank and respawn between launches in plain PyTorch.  The JAX image
+the segment loop instead: one K5 launch per bounce of every live lane,
+which also banks and respawns the lanes that die in it, and a host sync
+only once per chunk of launches.  The JAX image
 route froze a lane on an image hit and resolved its texel in XLA between
 launches; here the kernels fetch texels themselves, so the image route is
 the same loop without freezes.
@@ -67,7 +68,8 @@ from .megakernel import (BA_AB, BA_AG, BA_AR, BA_C2B, BA_C2G, BA_C2R,
                          L_UZ, L_VX, L_VY, L_VZ, L_WX, L_WY, L_WZ, M_AB, M_AG,
                          M_AR, M_COS, M_CX, M_CY, M_CZ, M_HIZ, M_KIND, M_LOX,
                          M_NID, M_R2, M_SIN, TILE_LANES, Prepared, _BLK, _np,
-                         active_primitive_count, check_tables, path_params,
+                         active_primitive_count, check_tables, cluster_cull,
+                         path_params,
                          prepare_megakernel_cached, render_pass_megakernel,
                          respawn_pass, respawn_tile_rows,
                          unswizzle_index_on)
@@ -1241,39 +1243,121 @@ def persist_step(state: torch.Tensor, slot: torch.Tensor, tables: Prepared,
                  int(tables.book2), tb_ptr, int(tile_lanes))
 
 
-def segment_step_plain(state: torch.Tensor, sample: torch.Tensor,
-                       tables: Prepared, seed: int, *, max_depth: int) -> None:
-    """Plain twin of the segment kernel K5: one bounce of the live lanes of
-    ``state`` [15, R] (lane = slot), keyed by the absolute sample index of
-    each lane's path ``sample`` (int32 [R]); dead lanes are not touched.
-    Updates ``state`` in place."""
+def check_segment_args(state: torch.Tensor, sums: torch.Tensor,
+                       done: torch.Tensor, sample: torch.Tensor,
+                       tables: Prepared) -> None:
+    """Raise unless a segment's arguments have the kernel's types and
+    shapes (state float32 [15, R], sums float32 [3, R], done float32 [R],
+    sample int32 [R]) and R is a multiple of 32, so that every warp is
+    full, and the tables are the path integrator's."""
+    if tables.mis:
+        raise ValueError("the segment kernel runs the path integrator only")
+    R = tables.n_lanes
+    if R % 32:
+        raise ValueError(f"{R} lanes: the segment kernel needs a multiple "
+                         "of 32")
+    for t, name, dtype, shape in ((state, "state", torch.float32, (N_SEG, R)),
+                                  (sums, "sums", torch.float32, (3, R)),
+                                  (done, "done", torch.float32, (R,)),
+                                  (sample, "sample", torch.int32, (R,))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} of shape {shape}, "
+                             f"got {t.dtype} of shape {tuple(t.shape)}")
+
+
+def segment_step_plain(state: torch.Tensor, sums: torch.Tensor,
+                       done: torch.Tensor, sample: torch.Tensor,
+                       tables: Prepared, seed: int, *, spp: int,
+                       max_depth: int, sample_offset: int = 0,
+                       alive: torch.Tensor | None = None) -> None:
+    """Plain twin of the segment kernel K5, in place: one bounce of the
+    live lanes of ``state`` [15, R] (lane = slot), keyed by the absolute
+    sample index of each lane's path ``sample`` (int32 [R]); then every
+    lane that died in it adds its radiance to ``sums`` [3, R], counts the
+    sample in ``done`` [R], takes ``done + sample_offset`` as its sample
+    index and, while ``done < spp``, the camera ray of that sample; its
+    radiance is multiplied by 0 (JAX's bank and respawn,
+    pallas_wavefront.py:927-950).  Lanes that were dead are not touched.
+    ``alive`` (int32, one element or more) gets the number of lanes alive
+    afterwards added to its first element."""
+    key = seed_key(seed)
     v = dict(zip(_SEG_NAMES, state.unbind(0)))
     slot = torch.arange(state.shape[1], dtype=torch.int64,
                         device=state.device)
-    bounce_live(tables, v, slot, sample.to(torch.int64), seed_key(seed),
-                max_depth)
+    was = v["alive"] > 0.0
+    bounce_live(tables, v, slot, sample.to(torch.int64), key, max_depth)
+    fin = was & (v["alive"] <= 0.0)
+    rad = torch.stack([v["rx"], v["ry"], v["rz"]])
+    sums.copy_(sums + torch.where(fin, rad, 0.0))
+    done.copy_(done + torch.where(fin, 1.0, 0.0))
+    sample.copy_(torch.where(fin, done.to(torch.int64) + sample_offset,
+                             sample.to(torch.int64)).to(torch.int32))
+    finz = torch.where(fin, 0.0, 1.0)
+    for r in ("rx", "ry", "rz"):
+        v[r] = v[r] * finz
+    nxt = (fin & (done < float(spp))).nonzero().squeeze(1)
+    if nxt.numel():
+        new = spawn_lanes(tables, slot[nxt], sample[nxt].to(torch.int64),
+                          key)
+        for k, nv in new.items():
+            v[k] = v[k].index_put((nxt,), nv)
     state.copy_(torch.stack([v[k] for k in _SEG_NAMES]))
+    if alive is not None:
+        alive[:1] += (state[R_ALIVE] > 0.0).sum().to(torch.int32)
 
 
-def segment_step(state: torch.Tensor, sample: torch.Tensor,
-                 tables: Prepared, seed: int, *, max_depth: int,
-                 work: torch.Tensor | None = None) -> None:
-    """One K5 launch, in place: one bounce of every live lane of ``state``
-    [15, R], keyed by ``sample`` (int32 [R]).  CUDA tensors launch
-    ``csrc/segment.cu``; CPU tensors run ``segment_step_plain``.  The path
-    integrator only.  ``work`` as in ``megakernel.path_params``."""
-    if tables.mis:
-        raise ValueError("the segment kernel runs the path integrator only")
-    if state.device.type == "cpu":
-        return segment_step_plain(state, sample, tables, seed,
-                                  max_depth=max_depth)
+def _segment_launcher(state: torch.Tensor, sums: torch.Tensor,
+                      done: torch.Tensor, sample: torch.Tensor,
+                      tables: Prepared, seed: int, *, spp: int,
+                      max_depth: int, sample_offset: int = 0,
+                      work: torch.Tensor | None = None):
+    """Check a pass's segment arguments on the card and build its
+    ``rtt::Params`` once; returns ``launch(alive_ptr)``, one K5 launch that
+    adds the lanes left alive to the int32 at device address
+    ``alive_ptr``."""
+    check_segment_args(state, sums, done, sample, tables)
+    for t, name in ((state, "state"), (sums, "sums"), (done, "done"),
+                    (sample, "sample")):
+        _cuda.require(t, name, t.dtype)  # the device and contiguity
     R = tables.n_lanes
-    _cuda.require(state, "state", torch.float32, (N_SEG, R))
-    _cuda.require(sample, "sample", torch.int32, (R,))
     check_tables(tables)
-    params = path_params(tables, seed, spp=1, max_depth=max_depth, work=work)
-    _cuda.launch("segment", state.data_ptr(), sample.data_ptr(), R,
-                 ctypes.addressof(params), int(tables.book2))
+    params = path_params(tables, seed, spp=spp, max_depth=max_depth,
+                         sample_offset=sample_offset, work=work)
+    args = (state.data_ptr(), sums.data_ptr(), done.data_ptr(),
+            sample.data_ptr(), R, ctypes.addressof(params),
+            int(tables.book2), int(cluster_cull(tables)))
+
+    def launch(alive_ptr: int) -> None:
+        _cuda.launch("segment", *args, alive_ptr)
+
+    launch.params = params  # keeps the struct alive with the closure
+    return launch
+
+
+def segment_step(state: torch.Tensor, sums: torch.Tensor, done: torch.Tensor,
+                 sample: torch.Tensor, tables: Prepared, seed: int, *,
+                 spp: int, max_depth: int, sample_offset: int = 0,
+                 alive: torch.Tensor | None = None,
+                 work: torch.Tensor | None = None) -> None:
+    """One K5 segment, in place: one bounce of every live lane of
+    ``state`` [15, R], keyed by ``sample`` (int32 [R]), and the bank and
+    respawn of the lanes that die in it, as ``segment_step_plain``
+    describes.  CUDA tensors launch ``csrc/segment.cu`` (the instance
+    ``cluster_cull`` picks); CPU tensors run ``segment_step_plain``.  The
+    path integrator only.  ``alive`` (int32) gets the lanes alive
+    afterwards added to its first element; ``work`` as in
+    ``megakernel.path_params`` (CUDA only)."""
+    if state.device.type == "cpu":
+        check_segment_args(state, sums, done, sample, tables)
+        return segment_step_plain(state, sums, done, sample, tables, seed,
+                                  spp=spp, max_depth=max_depth,
+                                  sample_offset=sample_offset, alive=alive)
+    if alive is None:
+        alive = torch.zeros(1, dtype=torch.int32, device=state.device)
+    _cuda.require(alive, "alive", torch.int32, (None,))
+    _segment_launcher(state, sums, done, sample, tables, seed, spp=spp,
+                      max_depth=max_depth, sample_offset=sample_offset,
+                      work=work)(alive.data_ptr())
 
 
 # ------------------------------------------------------------ launch loop
@@ -1366,8 +1450,32 @@ def _wavefront_pass_persist(tables: Prepared, seed: int, sample_offset: int,
     return sums
 
 
+def segment_start(tables: Prepared, seed: int, sample_offset: int) -> tuple:
+    """The segment loop's state before its first segment: every lane
+    spawns sample ``sample_offset``.  Returns (state [15, R], sums [3, R],
+    done [R], sample int32 [R])."""
+    R = tables.n_lanes
+    dev = tables.geom.device
+    slot = torch.arange(R, dtype=torch.int64, device=dev)
+    sample = torch.full((R,), sample_offset, dtype=torch.int64, device=dev)
+    v = spawn_lanes(tables, slot, sample, seed_key(seed))
+    zero = torch.zeros(R, dtype=torch.float32, device=dev)
+    state = torch.stack([v.get(k, zero) for k in _SEG_NAMES])
+    return (state, torch.zeros((3, R), dtype=torch.float32, device=dev),
+            zero.clone(), sample.to(torch.int32))
+
+
+# Segments launched between two reads of their alive counts (one host sync
+# a chunk): from the sweep on the H100 (chip_measure.py --segments,
+# PERF.md), within 2% of the best chunk on the final scene at 400x400 and
+# 800x800; a chunk captured as one CUDA graph (measured there too) was
+# slower.
+SEGMENT_CHUNK = 32
+
+
 def _wavefront_pass_segments(tables: Prepared, seed: int, sample_offset: int,
                              *, spp: int, max_depth: int,
+                             chunk: int = SEGMENT_CHUNK,
                              stats: dict | None = None) -> torch.Tensor:
     """Per-bounce segment loop of one render pass (_wavefront_pass,
     pallas_wavefront.py:814-955).  Returns the banked radiance sums [R, 3]
@@ -1375,41 +1483,54 @@ def _wavefront_pass_segments(tables: Prepared, seed: int, sample_offset: int,
 
     Every lane spawns sample ``sample_offset``.  Then, while any lane is
     alive and at most ``spp * max_depth + 1`` times, one ``segment_step``
-    bounces the live lanes; the lanes that died in it bank their radiance, and those
-    with samples left respawn their next sample with attenuation, radiance
-    and bounce count reset.  The bank and respawn are plain PyTorch, with
-    the kernels' slot-keyed draws, so the sums equal K3's and the unsorted
-    persist loop's bitwise.  ``stats`` receives the segment count as
-    ``launches``."""
-    R = tables.n_lanes
-    dev = tables.geom.device
-    key = seed_key(seed)
-    slot = torch.arange(R, dtype=torch.int64, device=dev)
-    sample = torch.full((R,), sample_offset, dtype=torch.int64, device=dev)
-    v = spawn_lanes(tables, slot, sample, key)
-    zero = torch.zeros(R, dtype=torch.float32, device=dev)
-    state = torch.stack([v.get(k, zero) for k in _SEG_NAMES])
-    done = zero
-    sums = torch.zeros((3, R), dtype=torch.float32, device=dev)
-    g = 0
-    while g < spp * max_depth + 1 and bool((state[R_ALIVE] > 0.0).any()):
-        was = state[R_ALIVE] > 0.0
-        segment_step(state, sample.to(torch.int32), tables, seed,
-                     max_depth=max_depth)
-        fin = was & (state[R_ALIVE] <= 0.0)
-        sums = sums + torch.where(fin, state[R_RX:R_RX + 3], 0.0)
-        done = done + torch.where(fin, 1.0, 0.0)
-        nxt = fin & (done < float(spp))
-        sample = done.to(torch.int64) + sample_offset
-        new = spawn_lanes(tables, slot, sample, key)
-        finz = torch.where(fin, 0.0, 1.0)
-        state = torch.stack([
-            state[r] * finz if k in ("rx", "ry", "rz")
-            else torch.where(nxt, new[k], state[r])
-            for r, k in enumerate(_SEG_NAMES)])
-        g += 1
+    bounces the live lanes, banks the radiance of those that die and
+    respawns those with samples left, all on the device (CPU tensors: the
+    plain twin), with the kernels' slot-keyed draws, so the sums equal
+    K3's and the unsorted persist loop's bitwise.  Segment g adds the
+    lanes left alive to slot g of a per-pass int32 buffer; the host reads
+    the slots of ``chunk`` segments at a time, one sync each, and stops
+    after the chunk in which a count is 0.  The segments after that one
+    find no live lane and change nothing.
+
+    ``stats`` receives ``launches`` (the segments the JAX loop runs: those
+    that began with a live lane), ``kernel_launches`` (the segments
+    issued, the last chunk's tail included), ``host_syncs`` and
+    ``chunk``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    state, sums, done, sample = segment_start(tables, seed, sample_offset)
+    dev = state.device
+    n_seg = spp * max_depth + 1
+    alive = torch.zeros(n_seg, dtype=torch.int32, device=dev)
+    kw = dict(spp=spp, max_depth=max_depth, sample_offset=sample_offset)
+    if dev.type == "cpu":
+        def run(g0: int, n: int) -> torch.Tensor:
+            for g in range(g0, g0 + n):
+                segment_step_plain(state, sums, done, sample, tables, seed,
+                                   alive=alive[g:g + 1], **kw)
+            return alive[g0:g0 + n]
+    else:
+        launch = _segment_launcher(state, sums, done, sample, tables, seed,
+                                   **kw)
+        base = alive.data_ptr()
+
+        def run(g0: int, n: int) -> torch.Tensor:
+            for g in range(g0, g0 + n):
+                launch(base + 4 * g)
+            return alive[g0:g0 + n]
+    g = syncs = 0
+    segments = n_seg
+    while g < n_seg:
+        n = min(chunk, n_seg - g)
+        counts = run(g, n).tolist()
+        syncs += 1
+        g += n
+        if 0 in counts:
+            segments = g - n + counts.index(0) + 1
+            break
     if stats is not None:
-        stats["launches"] = g
+        stats.update(launches=segments, kernel_launches=g, host_syncs=syncs,
+                     chunk=chunk)
     return sums.T.contiguous()
 
 

@@ -266,35 +266,85 @@ def test_mono_pass_kernel_matches_plain_and_k3(cuda, name):
     assert int(work[0]) >= tables.n_lanes * 4
 
 
+def _segment_tables(name, cuda, width=96):
+    scene, cfg, _ = models.get_scene(name, dict(image_width=width))
+    return mk.prepare_megakernel(
+        scene, derive_camera(cfg, "cpu"), width=width,
+        height=cfg.image_height, tile_rows=wf.wavefront_tile_rows(scene),
+        device=cuda)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["the_next_week", "book2_earth"])
 def test_segment_launch_matches_plain_step(cuda, name):
-    """One K5 launch against the plain step on a spawned state with every
-    third lane dead, bitwise; then the segment loop == K3, bitwise."""
-    scene, cfg, _ = models.get_scene(name, dict(image_width=96))
-    tables = mk.prepare_megakernel(
-        scene, derive_camera(cfg, "cpu"), width=96, height=cfg.image_height,
-        tile_rows=wf.wavefront_tile_rows(scene), device=cuda)
-    R = tables.n_lanes
-    slot = torch.arange(R, dtype=torch.int64, device=cuda)
-    sample = torch.full((R,), 3, dtype=torch.int64, device=cuda)
-    v = wf.spawn_lanes(tables, slot, sample, wf.seed_key(11))
-    zero = torch.zeros(R, device=cuda)
-    st_k = torch.stack([v.get(k, zero) for k in wf._SEG_NAMES])
+    """Three fused K5 launches against the plain step on a spawned state
+    with every third lane dead and done, bitwise (state, sums, done,
+    sample, alive counts); then the segment loop == K3, bitwise."""
+    tables = _segment_tables(name, cuda)
+    kw = dict(spp=2, max_depth=4, sample_offset=3)
+    st_k, sums_k, done_k, smp_k = wf.segment_start(tables, 11, 3)
     st_k[wf.R_ALIVE, ::3] = 0.0
-    st_p = st_k.clone()
+    done_k[::3] = 2.0
+    plain = [t.clone() for t in (st_k, sums_k, done_k, smp_k)]
+    alive_k = torch.zeros(3, dtype=torch.int32, device=cuda)
+    alive_p = alive_k.clone()
     before = _cuda.launch_counts()["segment"]
-    for _ in range(3):
-        wf.segment_step(st_k, sample.to(torch.int32), tables, 11,
-                        max_depth=4)
-        wf.segment_step_plain(st_p, sample.to(torch.int32), tables, 11,
-                              max_depth=4)
+    for g in range(3):
+        wf.segment_step(st_k, sums_k, done_k, smp_k, tables, 11,
+                        alive=alive_k[g:], **kw)
+        wf.segment_step_plain(*plain, tables, 11, alive=alive_p[g:], **kw)
     assert _cuda.launch_counts()["segment"] == before + 3
-    assert torch.equal(st_k, st_p)
+    for k, p in zip((st_k, sums_k, done_k, smp_k), plain):
+        assert torch.equal(k, p)
+    assert torch.equal(alive_k, alive_p) and int(alive_k[0]) > 0
+    assert float(sums_k.sum()) > 0
     seg = wf._wavefront_pass_segments(tables, 11, 1, spp=2, max_depth=4)
     k3 = mk.respawn_pass(tables, 11, 1, 2, 4)
     assert float(seg.sum()) > 0
     assert torch.equal(seg, k3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["the_next_week", "book2_earth"])
+def test_segment_instances_match_plain_over_a_pass(cuda, name):
+    """Both K5 instances (cooperative on the final scene, per-lane on
+    earth) against the twin segment by segment through the first ten
+    segments of a pass, where lanes bank and respawn; the counting
+    instance gives the same state; every chunking banks the same sums as
+    K3 with the same segment count."""
+    tables = _segment_tables(name, cuda)
+    assert mk.cluster_cull(tables) == (name == "the_next_week")
+    kw = dict(spp=3, max_depth=4, sample_offset=2)
+    kern = list(wf.segment_start(tables, 5, 2))
+    plain = [t.clone() for t in kern]
+    counted = [t.clone() for t in kern]
+    work = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64, device=cuda)
+    for g in range(10):
+        ak = torch.zeros(1, dtype=torch.int32, device=cuda)
+        ap = ak.clone()
+        wf.segment_step(*kern, tables, 5, alive=ak, **kw)
+        wf.segment_step(*counted, tables, 5, work=work, **kw)
+        wf.segment_step_plain(*plain, tables, 5, alive=ap, **kw)
+        for k, p, c in zip(kern, plain, counted):
+            assert torch.equal(k, p), g
+            assert torch.equal(k, c), g
+        assert torch.equal(ak, ap)
+    assert int(work[0]) > 0 and float(kern[1].sum()) > 0
+    k3 = mk.respawn_pass(tables, 5, 2, 3, 4)
+    segments = None
+    for chunk in (1, 8, 16, 64):
+        stats = {}
+        before = _cuda.launch_counts()["segment"]
+        sums = wf._wavefront_pass_segments(tables, 5, 2, chunk=chunk,
+                                           stats=stats, **{
+                                               k: kw[k] for k in
+                                               ("spp", "max_depth")})
+        assert torch.equal(sums, k3), chunk
+        segments = segments or stats["launches"]
+        assert stats["launches"] == segments
+        assert (_cuda.launch_counts()["segment"] - before
+                == stats["kernel_launches"] >= segments)
+        assert stats["host_syncs"] <= -(-segments // chunk) + 2
 
 
 @pytest.mark.cuda
@@ -356,7 +406,8 @@ def _spike_rays(ns, n_rays, cuda, seed=0):
 @pytest.mark.parametrize("ns,n_rays", [(512, 4096), (1024, 65536)])
 def test_scalar_hit_kernel_matches_plain(cuda, ns, n_rays):
     """S1's scalar loop against its twin: bitwise (-fmad=false), for one
-    scan and for three (the repeat changes nothing)."""
+    scan and for three (the repeat changes nothing), at the split the
+    wrapper picks."""
     from rustraytrace_tpu_torch.ops import dense_hit as dh
 
     _, stab, rays = _spike_rays(ns, n_rays, cuda)
@@ -368,6 +419,28 @@ def test_scalar_hit_kernel_matches_plain(cuda, ns, n_rays):
     assert int((ip >= 0).sum()) > n_rays // 8
     assert torch.equal(ik, ip) and torch.equal(tk, tp)
     assert torch.equal(i3, ip) and torch.equal(t3, tp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("ns,n_rays", [(1024, 4096), (1500, 8192)])
+def test_scalar_hit_every_split_matches_plain(cuda, split, ns, n_rays):
+    """Every split of S1b against the twin, bitwise: 1,024 spheres (one
+    shared-memory tile) and 1,500 (two, the second ragged), with a winning
+    sphere copied to a later row so that shares tie; the default split of
+    4,096 rays is 32 (too few rays to fill the card otherwise)."""
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    _, stab, rays = _spike_rays(ns, n_rays, cuda, seed=2)
+    _, first = dh.scalar_hit_plain(stab, *rays)
+    k = int(torch.bincount(first[first >= 0].long()).argmax())
+    stab[:, ns - 3] = stab[:, k]
+    tp, ip = dh.scalar_hit_plain(stab, *rays)
+    tk, ik = dh.scalar_hit(stab, *rays, iters=2, split=split)
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
+    assert int((ik == k).sum()) > 0 and int((ik == ns - 3).sum()) == 0
+    assert _cuda.scalar_split(4096) == 32
+    assert _cuda.scalar_split(1 << 20) == 1
 
 
 @pytest.mark.cuda

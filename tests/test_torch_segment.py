@@ -1,8 +1,9 @@
 """The per-bounce segment kernel K5 and its host loop (plain twin on the
 CPU): a segmented pass equals the unsorted persist loop and K3's twin
 bitwise on the Book-2 final scene and on earth; one step bounces the live
-lanes only; the routing of ``per_bounce_segments``; and the segmented
-earth against the JAX package's XLA backend.  The CUDA kernel is held
+lanes only and banks and respawns those that die; the routing of
+``per_bounce_segments``; and the segmented earth against the JAX
+package's XLA backend.  The CUDA kernel is held
 against its twin in test_torch_cuda.py."""
 
 import numpy as np
@@ -52,19 +53,43 @@ def test_segmented_pass_equals_persist_loop_and_k3(name):
 
 
 def test_segment_step_bounces_live_lanes_only():
+    """One fused segment: a dead lane with no samples left is untouched; a
+    live lane bounces once; a lane that dies in the bounce banks its
+    radiance, counts the sample and, with samples left, respawns the
+    camera ray of its next sample (bounce count 0, alive)."""
     _, _, tables = _image_tables("the_next_week")
     R = tables.n_lanes
+    state, sums, done, sample = wf.segment_start(tables, 3, 5)
+    state[wf.R_ALIVE, ::2] = 0.0  # every other lane dead, samples all done
+    done[::2] = 4.0
+    before = [t.clone() for t in (state, sums, done, sample)]
+    # the bare bounce, for the radiance that the dying lanes bank
+    v = {k: state[r].clone() for r, k in enumerate(wf._SEG_NAMES)}
     slot = torch.arange(R, dtype=torch.int64)
-    sample = torch.full((R,), 5, dtype=torch.int64)
-    v = wf.spawn_lanes(tables, slot, sample, wf.seed_key(3))
-    zero = torch.zeros(R)
-    state = torch.stack([v.get(k, zero) for k in wf._SEG_NAMES])
-    state[wf.R_ALIVE, ::2] = 0.0  # every other lane dead
-    before = state.clone()
-    wf.segment_step(state, sample.to(torch.int32), tables, 3, max_depth=4)
-    assert torch.equal(state[:, ::2], before[:, ::2])
-    assert torch.equal(state[14, 1::2], torch.ones(R // 2))  # one bounce
-    assert not torch.equal(state[1:4, 1::2], before[1:4, 1::2])
+    wf.bounce_live(tables, v, slot, sample.long(), wf.seed_key(3), 4)
+    alive = torch.zeros(1, dtype=torch.int32)
+    wf.segment_step(state, sums, done, sample, tables, 3, spp=4,
+                    max_depth=4, sample_offset=5, alive=alive)
+    for t, b in zip((state, sums, done, sample), before):
+        assert torch.equal(t[..., ::2], b[..., ::2])
+    odd = torch.arange(1, R, 2)
+    died = odd[v["alive"][odd] <= 0.0]
+    live = odd[v["alive"][odd] > 0.0]
+    assert died.numel() > 0 and live.numel() > 0
+    # survivors: one bounce, nothing banked
+    assert torch.equal(state[14, live], torch.ones(live.numel()))
+    assert not torch.equal(state[1:4, live], before[0][1:4, live])
+    assert torch.equal(done[live], torch.zeros(live.numel()))
+    assert torch.equal(sample[live], before[3][live])
+    # the dying lanes: banked, counted, respawned with sample 6
+    rad = torch.stack([v["rx"], v["ry"], v["rz"]])
+    assert torch.equal(sums[:, died], rad[:, died])
+    assert torch.equal(done[died], torch.ones(died.numel()))
+    assert torch.equal(sample[died], torch.full((died.numel(),), 6,
+                                                dtype=torch.int32))
+    assert torch.equal(state[wf.R_ALIVE, died], torch.ones(died.numel()))
+    assert torch.equal(state[14, died], torch.zeros(died.numel()))
+    assert int(alive) == live.numel() + died.numel()
 
 
 def test_per_bounce_segments_routes():
