@@ -60,11 +60,19 @@ numbers behind PERF.md's findings:
    the final scene at 400x400 and the two ``scripts/bench_persist.py``
    cases, one profiled segmented pass of each; S1b's split sweep (lanes a ray) at the spike's
    shape and at 2^20 rays, and the same with the kernel built to compute
-   the root of a pair whose discriminant is not positive too.
+   the root of a pair whose discriminant is not positive too;
+13. the design steps of S1a, the dense kernel (``--dense`` runs only this
+   item): one build and process per step of ``DENSE_SWEEP`` (the table
+   staged alone, with mma.sync products and every root, unsplit and
+   split; then the roots skipped; then wgmma, the kept build; then every
+   root on wgmma), each at the spike's shape
+   and at 2^20 rays, both precisions, 'highest' held to chip_smoke.py's
+   gate, with its registers; ``--dense DIR`` also times the dense kernel
+   of the checkout DIR first and last.
 
     python3 chip_measure.py [--reps 3] [--spp 1024] [--heads] [--reference]
                             [--kernels] [--megakernels] [--mega-sweep]
-                            [--segments]
+                            [--segments] [--dense [DIR]]
     python3 chip_measure.py --ab DIR [--reps 3]
 
 Items 1-4: Book-1 random spheres at 1200x675, depth 50, as
@@ -76,8 +84,8 @@ K3's route (their K3 passes; ``book2_perlin_spheres``'s ``render_image``
 too), the final scene (``render_image``),
 K2's main-path launches (with their work counts), K1, one K5 launch at
 the final scene's first bounce, the segmented final scene, scene 9 and
-earth (``render_pass_wavefront(per_bounce_segments=True)``), S1b at the
-spike's shape and at 2^20 rays and S1a at the spike's shape with the
+earth (``render_pass_wavefront(per_bounce_segments=True)``), S1b and S1a
+(both precisions) at the spike's shape and at 2^20 rays with the
 package of the checkout DIR
 and with this one, in the order DIR, this, this, DIR, each in its own
 process, and prints one JSON line per process.  Prints the card's name,
@@ -100,8 +108,8 @@ def _ab_child(reps: int) -> dict:
     on K3 (``book2_perlin_spheres`` end to end too), the final scene, K2's
     main-path launches with their work counts, K1 at its route's shape,
     the sphere_kernel route, one K5 launch, the three segmented cells, S1b
-    and S1a, with the package on sys.path; uses only calls the earlier
-    slices have too."""
+    and S1a (both precisions) at both shapes, with the package on
+    sys.path; uses only calls the earlier slices have too."""
     import torch
 
     from rustraytrace_tpu_torch import models, render
@@ -233,16 +241,17 @@ def _ab_child(reps: int) -> dict:
             height=cc.image_height, spp=cc.samples_per_pixel,
             max_depth=cc.max_depth, per_bounce_segments=True, device=dev))
 
-    # S1: the scalar kernel at both shapes, the dense one at the spike's
+    # S1: both kernels at both shapes, the dense one at both precisions
     from rustraytrace_tpu_torch.ops import dense_hit as dh
 
     for label, n_rays, iters in (("spike", 4096, 200), ("2p20", 1 << 20, 1)):
-        _, stab, rays = _spike_tables(1024, n_rays, dev)
+        dtab, stab, rays = _spike_tables(1024, n_rays, dev)
         out[f"s1b_{label}_ms"] = event_ms(
             lambda: dh.scalar_hit(stab, *rays, iters=iters))
-    dtab, _, rays = _spike_tables(1024, 4096, dev)
-    out["s1a_spike_ms"] = event_ms(
-        lambda: dh.dense_hit(dtab, *rays, iters=200))
+        for prec in ("highest", "default"):
+            out[f"s1a_{label}_{prec}_ms"] = event_ms(
+                lambda: dh.dense_hit(dtab, *rays, iters=iters,
+                                     precision=prec))
     return out
 
 
@@ -604,6 +613,89 @@ def _s1b_child(flags: list, reps: int) -> None:
     _cuda.NVCC_FLAGS = _cuda.NVCC_FLAGS + tuple(flags)
     _cuda.BUILD_DIR = os.path.join(_cuda.BUILD_DIR, "sweep")
     _s1b_sweep(reps, flags)
+
+
+# --dense: the design steps of S1a's kernel, one build each (flags) at the
+# split it picks, the first also with the sphere axis unsplit: the table
+# staged alone (mma.sync, every root), then the split, the skipped roots,
+# wgmma (the kept build); then the kept build with every root
+DENSE_SWEEP = (
+    ("staged, mma.sync, every root",
+     ("-DRTT_DENSE_WGMMA=0", "-DRTT_DENSE_SKIP_MISS=0"), (1, None)),
+    ("mma.sync, roots skipped", ("-DRTT_DENSE_WGMMA=0",), (None,)),
+    ("wgmma, roots skipped (kept)", (), (1, None)),
+    ("wgmma, every root", ("-DRTT_DENSE_SKIP_MISS=0",), (None,)),
+)
+
+
+def _dense_child(flags: list, splits: list, reps: int) -> dict:
+    """S1a at both shapes and precisions, each split of ``splits`` (None:
+    the wrapper's), with the library built with ``flags``; 'highest' held
+    to chip_smoke.py's gate; its registers.  Loads this checkout's
+    chip_smoke.py by path, so that the package on sys.path (this one or
+    the parent's, which knows no ``split``) is the one measured."""
+    import importlib.util
+
+    import torch
+
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    spec = importlib.util.spec_from_file_location(
+        "smoke_here", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if flags:
+        _cuda.NVCC_FLAGS = _cuda.NVCC_FLAGS + tuple(flags)
+        _cuda.BUILD_DIR = os.path.join(_cuda.BUILD_DIR, "sweep")
+    dev = torch.device("cuda")
+    out = {"flags": flags}
+    for label, n_rays, iters in (("spike", 4096, 200), ("2p20", 1 << 20, 1)):
+        dtab, _, rays = _spike_tables(1024, n_rays, dev)
+        tp, ip = dh.dense_hit_plain(dtab, *rays)
+        for split in splits:
+            kw = {} if split is None else dict(split=split)
+            tk, ik = dh.dense_hit(dtab, *rays, iters=iters, **kw)
+            gate = smoke._dense_gate(tk, ik, tp, ip, label == "spike")
+            for prec in ("highest", "default"):
+                out[f"{label}_{prec}_split_{split or 'default'}_ms"] = \
+                    smoke._cuda_ms(lambda: dh.dense_hit(
+                        dtab, *rays, iters=iters, precision=prec, **kw),
+                        reps)
+            out[f"{label}_split_{split or 'default'}_gate"] = gate
+        if "split" in dh.dense_hit.__code__.co_varnames:
+            out[f"{label}_default_split"] = dh.default_split(
+                n_rays, 1024, _cuda.dense_wave(True))
+    out["registers"] = {k: v for k, v in smoke._registers(
+        _cuda.build_info["log"]).items() if k.startswith("dense_hit")}
+    return out
+
+
+def _dense(parent: str | None, reps: int) -> int:
+    """The DENSE_SWEEP, one process and build per step, and, given a
+    checkout ``parent``, its S1a first and last (its package on the
+    path); one JSON line each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [(label, list(flags), list(splits), here)
+            for label, flags, splits in DENSE_SWEEP]
+    if parent:
+        runs = ([("parent", [], [None], parent)] + runs
+                + [("parent", [], [None], parent)])
+    for label, flags, splits, tree in runs:
+        tree = os.path.abspath(tree)
+        # -P: the script's own directory must not shadow the tree's package
+        res = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__),
+             "--dense-child", json.dumps([flags, splits]), "--reps",
+             str(reps)], cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
+            capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout, res.stderr, file=sys.stderr)
+            return res.returncode
+        print(json.dumps({"item": "S1a step", "step": label, **json.loads(
+            res.stdout.strip().splitlines()[-1])}), flush=True)
+    return 0
 
 
 def _profiled(label: str, fn) -> None:
@@ -1020,6 +1112,10 @@ def main() -> int:
                     help="run item 11 only")
     ap.add_argument("--segments", action="store_true",
                     help="run item 12 only")
+    ap.add_argument("--dense", nargs="?", const="", metavar="DIR",
+                    help="run item 13 only (DIR: a parent checkout)")
+    ap.add_argument("--dense-child", metavar="FLAGS_SPLITS",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--mega-sweep-child", metavar="FLAGS",
                     help=argparse.SUPPRESS)
     ap.add_argument("--s1b-child", metavar="FLAGS", help=argparse.SUPPRESS)
@@ -1040,6 +1136,10 @@ def main() -> int:
     if args.s1b_child is not None:
         _s1b_child(json.loads(args.s1b_child), args.reps)
         return 0
+    if args.dense_child is not None:
+        print(json.dumps(_dense_child(*json.loads(args.dense_child),
+                                      args.reps)))
+        return 0
     if args.mega_sweep_child is not None:
         print(json.dumps(_mega_sweep_child(
             json.loads(args.mega_sweep_child), args.reps)))
@@ -1055,6 +1155,8 @@ def main() -> int:
         timeout=60).stdout.strip(), flush=True)
     if args.ab:
         return _ab(args.ab, args.reps)
+    if args.dense is not None:
+        return _dense(args.dense or None, args.reps)
     if args.heads:
         _heads(args.reps)
         return 0

@@ -54,9 +54,10 @@ Book-3 Cornell box vs K3, and the scenes the kernels do not cover, on
 'auto'); 16 S1, the dense spike's
 tensor-core and scalar kernels (the port's spike script, then each kernel
 against its twin at the spike's shape and at 2^20 rays, the scalar one at
-1, 4 and 32 lanes a ray too).  The plain twins
-run at reduced spp on the card (the line of each comparison states its
-size).
+1, 4 and 32 lanes a ray too, the dense one at 1, 4 and 64 ranges of the
+sphere axis too, each slower than a floor that proves its work done).
+The plain twins run at reduced spp on the card (the line of each
+comparison states its size).
 
     python3 chip_smoke.py
 
@@ -134,10 +135,12 @@ OPS = dict(sphere=30, box=25, quad=61, path_bounce=231, mis_bounce=317,
            light_pick=5, light_sample=(15, 76), light_pdf=(68, 50),
            box_row=30, medium=45, noise=134, texel=27,
            # S1 per (ray, sphere) pair (csrc/dense_hit.cu): the dense
-           # epilogue after the two products, and the scalar loop's test:
-           # 32 where the discriminant is positive, 18 where the kernel
-           # skips the root
-           dense_pair=22, scalar_pair=32, scalar_miss=18)
+           # epilogue after the two products, 22 where the discriminant is
+           # positive and 6 where the kernel skips the root (a fused
+           # multiply-add counted as 2), and the scalar loop's test: 32
+           # where the discriminant is positive, 18 where the kernel skips
+           # the root
+           dense_pair=22, dense_miss=6, scalar_pair=32, scalar_miss=18)
 # S1's products on the tensor cores: 495 TFLOP/s dense TF32 (H100 SXM)
 PEAK_TF32 = 495e12
 
@@ -279,6 +282,7 @@ def _registers(log: str) -> dict:
             base = next((k for k in ("persist_kernel", "respawn_kernel",
                                      "mono_kernel", "segment_kernel",
                                      "sphere_hit_kernel", "dense_hit_kernel",
+                                     "dense_merge_kernel",
                                      "scalar_hit_kernel") if k in mangled),
                         mangled)
             # template flags: "ILb0ELb1ELb0E" -> [False, True, False]
@@ -1431,6 +1435,38 @@ def _scalar_ops(stab, rays, iters: int) -> float:
     return iters * (pos * OPS["scalar_pair"] + miss * OPS["scalar_miss"])
 
 
+def _dense_ops(dtab, rays, iters: int) -> float:
+    """Operations of the dense S1 kernel on these inputs: per scan, 22 a
+    pair whose discriminant is positive and 6 a pair whose root the
+    kernel skips, the discriminant from the twin's arithmetic
+    ('highest', in chunks of rays)."""
+    from rustraytrace_tpu_torch.ops import dense_hit as dh
+
+    n, pos = rays[0].numel(), 0
+    for lo in range(0, n, 16384):
+        _, disc = dh.dense_keys(dtab, *(r.reshape(-1)[lo:lo + 16384]
+                                        for r in rays))
+        pos += int((disc > 0.0).sum())
+    miss = n * dtab.shape[1] - pos
+    return iters * (pos * OPS["dense_pair"] + miss * OPS["dense_miss"])
+
+
+def _dense_gate(tk, ik, tp, ip, every: bool) -> dict:
+    """S1a's gate against its twin: hit mask and winner on >= 99.9% of
+    rays, |dt| <= 1e-2 where both hit, on every ray (``every``) or on >=
+    99.9% of them."""
+    import torch
+
+    both = (ik >= 0) & (ip >= 0)
+    dt = torch.abs(tk - tp)[both]
+    r = dict(mask=((ik >= 0) == (ip >= 0)).float().mean().item(),
+             idx=(ik == ip).float().mean().item(), dt_max=dt.max().item(),
+             within=(dt <= 1e-2).float().mean().item())
+    r["ok"] = (r["mask"] >= 0.999 and r["idx"] >= 0.999
+               and (r["dt_max"] <= 1e-2 if every else r["within"] >= 0.999))
+    return r
+
+
 def _phase16(dev) -> dict:
     """S1: the port's spike script (both precisions), then both kernels
     against their twins at the spike's shape (1,024 spheres, 4,096 rays,
@@ -1440,8 +1476,10 @@ def _phase16(dev) -> dict:
     'highest' winner and hit mask on >= 99.9% of rays and |dt| <= 1e-2
     (every ray at the spike's shape, >= 99.9% at 2^20, where exactly
     rounded products differ from the twin by more on near-tangent rays;
-    their max is printed beside).  Returns the numbers of the two
-    entries."""
+    their max is printed beside) at the split it picks and at 1, 4 and 64
+    ranges of the sphere axis, and slower than the tensor cores' time for
+    every pair and iteration (all the products done).  Returns the
+    numbers of the two entries."""
     import contextlib
     import io
 
@@ -1450,6 +1488,9 @@ def _phase16(dev) -> dict:
     from rustraytrace_tpu_torch.ops import _cuda, dense_hit as dh
     from rustraytrace_tpu_torch.scripts import spike_dense_mxu as spike
 
+    _cuda.library()  # built, so that the build log holds the registers
+    regs = {k: v for k, v in _registers(_cuda.build_info["log"]).items()
+            if k.startswith(("dense_hit_kernel", "dense_merge_kernel"))}
     launches = {}
     for prec in ("highest", "default"):
         _cuda.reset_launch_counts()
@@ -1464,6 +1505,11 @@ def _phase16(dev) -> dict:
               + f"; launch counts {cnt}", flush=True)
         _check(cnt["dense_hit"] > 0 and cnt["scalar_hit"] > 0,
                "the spike script did not launch both kernels")
+        # the dense kernel's ranges are merged by a launch of their own
+        merges = cnt["dense_hit"] if dh.default_split(
+            4096, 1024, _cuda.dense_wave(prec == "highest")) > 1 else 0
+        _check(cnt["dense_merge"] == merges, f"the spike script made "
+               f"{cnt['dense_merge']} merge launches, not {merges}")
 
     res = {}
     for label, ns, n_rays, iters in (("spike", 1024, 4096, 200),
@@ -1494,6 +1540,7 @@ def _phase16(dev) -> dict:
         pairs = n_rays * ns * iters
         row = dict(s_eq=s_eq, s_ms=s_ms, s_plain=s_plain, pairs=pairs,
                    s_err=s_err, split=split, s_split_eq=s_split_eq)
+        every = label == "spike"
         for prec in ("highest", "default"):
             td, id_ = dh.dense_hit(dtab, *rays, iters=iters, precision=prec)
             tp, ip = dh.dense_hit_plain(dtab, *rays, precision=prec)
@@ -1501,38 +1548,43 @@ def _phase16(dev) -> dict:
                 lambda: dh.dense_hit_plain(dtab, *rays, precision=prec), 1)
             d_ms = _cuda_ms(lambda: dh.dense_hit(dtab, *rays, iters=iters,
                                                  precision=prec), 3)
-            both = (id_ >= 0) & (ip >= 0)
-            dt = torch.abs(td - tp)[both]
-            mask = ((id_ >= 0) == (ip >= 0)).float().mean().item()
-            idx = (id_ == ip).float().mean().item()
-            within = (dt <= 1e-2).float().mean().item()
             hit_d, hit_s = id_ >= 0, is_k >= 0
             vs_scalar = (((hit_d == hit_s).float().mean().item()),
                          (id_ == is_k)[hit_d & hit_s].float().mean().item(),
                          torch.abs(td - ts_k)[hit_d & hit_s].max().item())
-            row[prec] = dict(ms=d_ms, plain=d_plain, mask=mask, idx=idx,
-                             dt_max=dt.max().item(), within=within,
-                             vs_scalar=vs_scalar)
+            row[prec] = dict(ms=d_ms, plain=d_plain, vs_scalar=vs_scalar,
+                             **_dense_gate(td, id_, tp, ip, every))
         te, ie = _dense_exact(dtab, rays)
         tp_h, ip_h = dh.dense_hit_plain(dtab, *rays)
         both = (ie >= 0) & (ip_h >= 0)
         floor = torch.abs(te - tp_h)[both].max().item()
+        # the sphere axis split forced: 1, 4, the default, the largest
+        d_split = dh.default_split(n_rays, ns, _cuda.dense_wave(True))
+        d_splits = {}
+        for k in sorted({1, 4, d_split, dh.DENSE_SPLITS[-1]}):
+            tk, ik = dh.dense_hit(dtab, *rays, iters=iters, split=k)
+            d_splits[k] = _dense_gate(tk, ik, tp_h, ip_h, every)
         mma = pairs * 2 * 4 * 2 * 3  # two K=4 products, 3 TF32 passes
         t_mma = 1e3 * mma / PEAK_TF32
         # table and rays read once, t and idx written once; the FP32
-        # epilogue and the tensor-core products can overlap, so the bound
-        # is the largest of the three times
-        d_bound, d_by = _bound(pairs * OPS["dense_pair"],
-                               4 * (8 * ns + 8 * n_rays))
+        # epilogue (counted from this run's discriminants) and the
+        # tensor-core products can overlap, so the bound is the largest of
+        # the three times; beside it the bound of every root taken
+        d_bytes = 4 * (8 * ns + 8 * n_rays)
+        d_bound, d_by = _bound(_dense_ops(dtab, rays, iters), d_bytes)
         if t_mma > d_bound:
             d_bound, d_by = t_mma, "operations"
+        d_bound_all = max(_bound(pairs * OPS["dense_pair"], d_bytes)[0],
+                          t_mma)
         s_bytes = 4 * (4 * ns + 8 * n_rays)
         s_bound, s_by = _bound(_scalar_ops(stab, rays, iters), s_bytes)
         # the floor that proves every pair was computed: 32 operations a
         # pair, as if no root were skipped (above the counted bound)
         s_floor, _ = _bound(pairs * OPS["scalar_pair"], s_bytes)
         row.update(floor=floor, d_bound=d_bound, d_by=d_by, t_mma=t_mma,
-                   s_bound=s_bound, s_by=s_by, s_floor=s_floor)
+                   d_bound_all=d_bound_all, d_split=d_split,
+                   d_splits=d_splits, d_regs=regs, s_bound=s_bound,
+                   s_by=s_by, s_floor=s_floor)
         hi = row["highest"]
         for prec in ("highest", "default"):
             r = row[prec]
@@ -1555,8 +1607,24 @@ def _phase16(dev) -> dict:
               f"({s_by}, {pairs / s_bound / 1e6:.1f} Gpairs/s), every "
               f"pair at 32 operations {s_floor:.4f} ms (required below the "
               f"kernel's time)", flush=True)
+        print(f"[16 S1 {label}, dense] split {d_split} of the sphere "
+              f"axis (the least that covers a resident wave); registers "
+              f"{regs}; 'highest' at splits "
+              + ", ".join(f"{k}: winner {v['idx']:.6f}, mask "
+                          f"{v['mask']:.6f}, max |dt| {v['dt_max']:.3e}"
+                          for k, v in d_splits.items())
+              + f"; bound {d_bound:.4f} ms ({d_by}; every root taken "
+              f"{d_bound_all:.4f} ms; tensor cores {t_mma:.4f} ms, "
+              f"required below the kernel's time); dense 'highest' "
+              f"{hi['ms']:.4f} ms vs scalar {s_ms:.4f} ms: "
+              f"{s_ms / hi['ms']:.2f}x", flush=True)
         _check(s_eq and all(s_split_eq.values()),
                f"S1 scalar differs from its twin ({label})")
+        _check(all(v["ok"] for v in d_splits.values()),
+               f"S1 dense 'highest' disagrees with its twin at a forced "
+               f"split ({label})")
+        _check(hi["ms"] > t_mma, f"S1 dense ran under the tensor cores' "
+               f"time for every pair ({label}): work was skipped")
         _check(s_ms > s_floor, f"S1 scalar ran under the time of every "
                f"pair at 32 operations ({label}): work was skipped")
         _check(hi["mask"] >= 0.999 and hi["idx"] >= 0.999
@@ -2097,13 +2165,26 @@ def main() -> int:
             row.update(max_abs_err=sp[key]["dt_max"], ms=sp[key]["ms"],
                        plain_ms=sp[key]["plain"], bound_ms=sp["d_bound"],
                        bound_by=sp["d_by"],
+                       bound_ms_all_roots=sp["d_bound_all"],
                        tensor_core_ms_bound=sp["t_mma"],
+                       split=sp["d_split"], registers=sp["d_regs"],
+                       merge_launches=r16["launches"]["highest"][
+                           "dense_merge"],
+                       ms_includes="dense_hit_kernel and, above one "
+                                   "range, dense_merge_kernel",
                        default_ms=sp["default"]["ms"],
                        ms_2p20=big[key]["ms"],
                        plain_ms_2p20=big[key]["plain"],
                        bound_ms_2p20=big["d_bound"],
+                       bound_ms_all_roots_2p20=big["d_bound_all"],
+                       split_2p20=big["d_split"],
+                       default_ms_2p20=big["default"]["ms"],
                        max_abs_err_2p20=big[key]["dt_max"],
-                       exact_products_max_abs_err_2p20=big["floor"])
+                       exact_products_max_abs_err_2p20=big["floor"],
+                       forced_splits_max_abs_err={
+                           lab: {k: v["dt_max"]
+                                 for k, v in r["d_splits"].items()}
+                           for lab, r in (("spike", sp), ("2p20", big))})
         else:
             row.update(max_abs_err=max(sp["s_err"], big["s_err"]),
                        ms=sp["s_ms"], plain_ms=sp["s_plain"],

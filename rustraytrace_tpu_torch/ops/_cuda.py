@@ -89,9 +89,12 @@ KERNELS = {
     # state, sums, done, sample, R, &PathParams, book2, coop, alive, stream
     "segment": Kernel("rtt_segment_step",
                       (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P)),
-    # dtab, NS, ox, oy, oz, dx, dy, dz, iters, highest, bt, bi, R, stream
+    # dtab, NS, ox, oy, oz, dx, dy, dz, iters, highest, split, bt, bi
+    # ([split, R]: each range's result), R, stream
     "dense_hit": Kernel("rtt_dense_hit", (
-        _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P)),
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P)),
+    # pt, pi [split, R], split, bt, bi, R, stream
+    "dense_merge": Kernel("rtt_dense_merge", (_P, _P, _I, _P, _P, _I, _P)),
     # tab, NS, ox, oy, oz, dx, dy, dz, iters, split, bt, bi, R, stream
     "scalar_hit": Kernel("rtt_scalar_hit", (
         _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P)),
@@ -136,7 +139,11 @@ def _build() -> str:
             h.update(path.encode() + b"\0" + f.read())
     out = os.path.join(BUILD_DIR, f"librtt_torch_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        build_info.update(path=out, seconds=0.0, log="(cached)")
+        log = "(cached)"
+        if os.path.exists(f"{out}.log"):  # the ptxas report of its build
+            with open(f"{out}.log") as f:
+                log = f.read()
+        build_info.update(path=out, seconds=0.0, log=log)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -172,9 +179,12 @@ def _build() -> str:
                            f"{' '.join(link)}\n{res.stdout}\n{res.stderr}")
     for obj in objs:
         os.remove(obj)
+    log = "".join(logs) + res.stdout + res.stderr
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)
-    build_info.update(path=out, seconds=time.perf_counter() - t0,
-                      log="".join(logs) + res.stdout + res.stderr)
+    build_info.update(path=out, seconds=time.perf_counter() - t0, log=log)
     return out
 
 
@@ -194,6 +204,8 @@ def library() -> ctypes.CDLL:
             lib.rtt_params_size.argtypes = []
             lib.rtt_scalar_split.restype = ctypes.c_int
             lib.rtt_scalar_split.argtypes = [_I]
+            lib.rtt_dense_wave.restype = ctypes.c_int
+            lib.rtt_dense_wave.argtypes = [_I]
             for fn in _SHAPES.values():
                 getattr(lib, fn).restype = ctypes.c_int
                 getattr(lib, fn).argtypes = [_I, _I, _I, _I,
@@ -228,6 +240,23 @@ def scalar_split(n_rays: int) -> int:
     if k <= 0:
         raise RuntimeError(f"rtt_scalar_split failed: error {-k}")
     return k
+
+
+_dense_waves: dict = {}
+
+
+def dense_wave(highest: bool) -> int:
+    """Rays of one resident wave of the dense closest-hit kernel on the
+    current device (csrc/dense_hit.cu rtt_dense_wave: SMs x blocks an SM
+    holds x rays a block), queried once per device and precision; raises
+    on a CUDA error."""
+    key = (torch.cuda.current_device(), bool(highest))
+    if key not in _dense_waves:
+        wave = library().rtt_dense_wave(int(highest))
+        if wave <= 0:
+            raise RuntimeError(f"rtt_dense_wave failed: error {-wave}")
+        _dense_waves[key] = wave
+    return _dense_waves[key]
 
 
 def megakernel_shape(name: str, mis: bool, book2: bool, count: bool,

@@ -1,6 +1,6 @@
 """The dense closest-sphere spike on the card (counterpart:
 ``scripts/spike_dense_mxu.py``): the tensor-core formulation of the sphere
-quadric (``ops/dense_hit.py`` ``dense_hit``, ``mma.sync`` TF32) against
+quadric (``ops/dense_hit.py`` ``dense_hit``, ``wgmma`` TF32) against
 the per-sphere scalar loop (``scalar_hit``) on the spike's tables and rays,
 outside the path tracer.  Prints the agreement of the two kernels, then
 each one's time and rate in pairs (ray x sphere x iteration) per second.
@@ -109,7 +109,7 @@ def main(argv=None) -> int:
     print(f"scalar unroll=4 ns={ns}: {b_s * 1e3:.1f} ms = "
           f"{pairs / b_s / 1e9:.1f} Gpairs/s", flush=True)
     b_d = _time(dense, dev)
-    print(f"dense mma.sync ns={ns} ({args.precision}): {b_d * 1e3:.1f} ms = "
+    print(f"dense wgmma ns={ns} ({args.precision}): {b_d * 1e3:.1f} ms = "
           f"{pairs / b_d / 1e9:.1f} Gpairs/s", flush=True)
     print(f"dense/scalar speedup: {b_s / b_d:.2f}x")
     return 0

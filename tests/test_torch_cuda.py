@@ -444,22 +444,35 @@ def test_scalar_hit_every_split_matches_plain(cuda, split, ns, n_rays):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 4, None, 64])
 @pytest.mark.parametrize("precision", ["highest", "default"])
-@pytest.mark.parametrize("n_rays", [4096, 65536])
-def test_dense_hit_kernel_matches_plain(cuda, precision, n_rays):
+@pytest.mark.parametrize("ns,n_rays", [(1024, 4096), (1024, 65536),
+                                       (1040, 8192)])
+def test_dense_hit_kernel_matches_plain(cuda, split, precision, ns, n_rays):
     """S1's tensor-core kernel against its twin (float32 matmul, TF32 off;
-    operands rounded to TF32 for 'default'): winner index and hit mask
-    equal on >= 99.9% of rays; |dt| <= 1e-2 where both hit, on every ray
-    at the spike's 4,096 and on >= 99.9% of them at 65,536 (there even
-    exactly rounded products differ from the twin by more on near-tangent
-    rays: 1.1e-2 at 262,144 rays in a float64 emulation); and the first
-    index on a tie (two copies of one sphere)."""
+    operands rounded to TF32 for 'default') at every forced split of the
+    sphere axis (1, 4, the default, the largest) and at 1,040 spheres (a
+    multiple of 16 but not of a product's 32 or of the 256-sphere tile):
+    winner index and hit mask equal on >= 99.9% of rays; |dt| <= 1e-2
+    where both hit, on every ray at the spike's 4,096 and on >= 99.9% of
+    them at more (there even exactly rounded products differ from the
+    twin by more on near-tangent rays: 1.1e-2 at 262,144 rays in a float64
+    emulation); and the first index on a tie (a winning sphere copied to
+    the next row and to the last, which is in another range at every
+    split above 1).  One launch of the kernel, and one of the merge
+    above one range."""
     from rustraytrace_tpu_torch.ops import dense_hit as dh
 
-    dtab, _, rays = _spike_rays(1024, n_rays, cuda)
-    before = _cuda.launch_counts()["dense_hit"]
-    tk, ik = dh.dense_hit(dtab, *rays, iters=2, precision=precision)
-    assert _cuda.launch_counts()["dense_hit"] == before + 1
+    dtab, _, rays = _spike_rays(ns, n_rays, cuda)
+    before = _cuda.launch_counts()
+    tk, ik = dh.dense_hit(dtab, *rays, iters=2, precision=precision,
+                          split=split)
+    after = _cuda.launch_counts()
+    used = split or dh.default_split(
+        n_rays, ns, _cuda.dense_wave(precision == "highest"))
+    assert after["dense_hit"] == before["dense_hit"] + 1
+    # the ranges' merge is a launch of its own, above one range
+    assert after["dense_merge"] == before["dense_merge"] + (used > 1)
     tp, ip = dh.dense_hit_plain(dtab, *rays, precision=precision)
     both = (ik >= 0) & (ip >= 0)
     assert int(both.sum()) > n_rays // 8
@@ -470,12 +483,16 @@ def test_dense_hit_kernel_matches_plain(cuda, precision, n_rays):
         assert dt.max().item() <= 1e-2
     else:
         assert (dt <= 1e-2).float().mean().item() >= 0.999
-    wins = torch.bincount(ip[ip >= 0].long(), minlength=1024)
-    k = int(torch.argmax(wins[:900]))  # a sphere that wins many rays
+    wins = torch.bincount(ip[ip >= 0].long(), minlength=ns)
+    k = int(torch.argmax(wins[:ns // 2]))  # a sphere that wins many rays
     tie = dtab.clone()
-    tie[:, 1000] = tie[:, k]
-    tk, ik = dh.dense_hit(tie, *rays, precision=precision)
-    assert int((ik == k).sum()) > 0 and int((ik == 1000).sum()) == 0
+    tie[:, k + 1] = tie[:, k]
+    tie[:, ns - 1] = tie[:, k]
+    _, ik = dh.dense_hit(tie, *rays, precision=precision, split=split)
+    assert int((ik == k).sum()) > 0
+    assert int(((ik == k + 1) | (ik == ns - 1)).sum()) == 0
+    wave = _cuda.dense_wave(precision == "highest")
+    assert dh.default_split(4096, 1024, wave) in dh.DENSE_SPLITS
 
 
 @pytest.mark.cuda
