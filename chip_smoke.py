@@ -21,6 +21,10 @@ paths on the card:
   sphere_kernel route, whose closest hit is K1 at every bounce;
 * the spike script ``rustraytrace_tpu_torch.scripts.spike_dense_mxu`` on
   S1's two kernels;
+* BASELINE config 4's inverse-rendering fit
+  (``rustraytrace_tpu_torch.scripts.inverse_rendering``: 64x36, 16 spp,
+  depth 4, 250 Adam steps) through ``diff.fit``, with the trace forward
+  and with the kernel forward (K3);
 
 then the other routes, each also held bitwise against the plain twin at
 its full lane count.  Phases: 1 env, 2 build (registers of every kernel
@@ -55,7 +59,13 @@ Book-3 Cornell box vs K3, and the scenes the kernels do not cover, on
 tensor-core and scalar kernels (the port's spike script, then each kernel
 against its twin at the spike's shape and at 2^20 rays, the scalar one at
 1, 4 and 32 lanes a ray too, the dense one at 1, 4 and 64 ranges of the
-sphere axis too, each slower than a floor that proves its work done).
+sphere axis too, each slower than a floor that proves its work done); 17
+the training path (BASELINE config 4, ``scripts/inverse_rendering`` at
+64x36, 16 spp, depth 4): the gradient on the card against the CPU port
+and against central differences, the whole 250-step fit with the trace
+forward (gated on the example's recovery; step time, idle share of a
+step), the same fit with the kernel forward (K3 launches counted), and
+the sharded pass and contraction on a one-rank NCCL group.
 The plain twins run at reduced spp on the card (the line of each
 comparison states its size).
 
@@ -1635,6 +1645,276 @@ def _phase16(dev) -> dict:
     return dict(res=res, launches=launches)
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _ProfiledSteps:
+    """A fit's ``progress(step, loss)`` hook that runs ``torch.profiler``
+    over the fit's own steps ``first`` .. ``first + n - 1``: ``wall`` (s)
+    from the end of step ``first - 1`` to the end of the last, ``busy``
+    (s) the union of the device's kernel and copy intervals in it (None
+    when the profiler recorded none), ``n_dev`` their count.  A step ends
+    when ``fit`` reads its loss, which waits for the device."""
+
+    def __init__(self, dev, first: int, n: int):
+        self.dev, self.first, self.n = dev, first, n
+        self.prof = self.wall = self.busy = None
+        self.n_dev = 0
+
+    def __call__(self, step, loss):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if step == self.first - 1:
+            acts = [ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            _sync(self.dev)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif step == self.first + self.n - 1:
+            _sync(self.dev)
+            self.wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+            spans = sorted((e.time_range.start, e.time_range.end)
+                           for e in self.prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            busy, end = 0.0, float("-inf")
+            for a, b in spans:
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+            self.busy = busy * 1e-6 if spans else None
+            self.n_dev = len(spans)
+
+
+def _phase17(dev, steps: int = 250) -> dict:
+    """The training path (BASELINE config 4, ``scripts/inverse_rendering``
+    at full size: 64x36, 16 spp, depth 4, chunk 4096): (a) the gradient on
+    the card against the CPU port, (b) against central differences on the
+    card, (c) the whole fit with the trace forward, gated on the script's
+    recovery, with its step time and the device's idle share of one step,
+    (d) the fit with the kernel forward (K2/K3), (e) the sharded pass and
+    contraction on a one-rank process group."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rustraytrace_tpu_torch import diff, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.parallel import (make_mesh,
+                                                 render_contract_sharded,
+                                                 render_pass_sharded)
+    from rustraytrace_tpu_torch.scripts import inverse_rendering as ir
+
+    cpu = torch.device("cpu")
+    cfg = ir.config()
+    w, h = cfg.image_width, cfg.image_height
+    kw = dict(width=w, height=h, spp=cfg.samples_per_pixel, max_depth=4,
+              chunk=4096)
+    cam = derive_camera(cfg, device=dev)
+    wrong = ir.build_scene(ir.START_ALBEDO, ir.START_CENTER)
+    with torch.no_grad():
+        target = diff.render_mean(ir.build_scene(ir.TRUE_ALBEDO,
+                                                 ir.TRUE_CENTER),
+                                  cam, 42, device=dev, **kw)
+    params = diff.extract_params(wrong, ir.PARAMS)
+    out = {}
+
+    # ---- 17a: the gradient on the card vs the CPU port, same draws
+    t0 = time.perf_counter()
+    loss_d, g_d = diff.value_and_grad_loss(wrong, params, target, cam, 5,
+                                           device=dev, **kw)
+    _sync(dev)
+    vag_s = time.perf_counter() - t0
+    loss_c, g_c = diff.value_and_grad_loss(
+        wrong, params, target.cpu(), derive_camera(cfg, device=cpu), 5,
+        device=cpu, **kw)
+    loss_rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    grad_rel, ok_a = {}, loss_rel <= 1e-3
+    for k in ir.PARAMS:
+        gd, gc = g_d[k].cpu(), g_c[k]
+        top = gc.abs().max().item()
+        grad_rel[k] = (gd - gc).abs().max().item() / top
+        ok_a &= bool(torch.all((gd - gc).abs()
+                               <= 1e-3 * gc.abs() + 1e-3 * top))
+    print(f"[17a gradient, card vs CPU] config 4 {w}x{h} {kw['spp']} spp "
+          f"depth 4, seed 5, forward 'trace': loss {float(loss_d):.6e} vs "
+          f"{float(loss_c):.6e} (rel {loss_rel:.2e}); max |dgrad| / max "
+          f"|grad| {grad_rel}; gate: loss rtol 1e-3, each entry within "
+          f"1e-3 of itself plus 1e-3 of the largest: {ok_a}; first call "
+          f"{vag_s:.2f} s", flush=True)
+    _check(ok_a, "card and CPU gradients disagree")
+    out.update(loss_rel=loss_rel, grad_rel=grad_rel)
+
+    # ---- 17b: central differences on the card, same seed both sides
+    def loss_at(name, idx, d, seed):
+        p = {k: v.clone() for k, v in params.items()}
+        p[name][idx] += d
+        with torch.no_grad():
+            return float(diff.image_loss(diff.apply_params(wrong, p),
+                                         target, cam, seed,
+                                         warp_primary="tent", device=dev,
+                                         **kw))
+
+    g_alb = float(g_d["tex_color1"][1, 0])
+    fd_alb = (loss_at("tex_color1", (1, 0), 1e-3, 5)
+              - loss_at("tex_color1", (1, 0), -1e-3, 5)) / 2e-3
+    ok_alb = abs(fd_alb - g_alb) <= 0.05 * abs(g_alb) + 1e-5
+    ads, fds = [], []
+    for k in range(8):
+        _, g = diff.value_and_grad_loss(wrong, params, target, cam, 100 + k,
+                                        device=dev, **kw)
+        ads.append(float(g["sph_center"][1, 0]))
+        fds.append((loss_at("sph_center", (1, 0), 0.02, 100 + k)
+                    - loss_at("sph_center", (1, 0), -0.02, 100 + k)) / 0.04)
+    ad, fd = float(np.mean(ads)), float(np.mean(fds))
+    ok_ctr = ad * fd > 0 and abs(ad - fd) <= 0.35 * abs(fd)
+    print(f"[17b gradient vs central differences] albedo red of sphere 1: "
+          f"ad {g_alb:.6e} fd {fd_alb:.6e} (eps 1e-3, rel 0.05 + 1e-5: "
+          f"{ok_alb}); center x of sphere 1, the mean over seeds 100-107: "
+          f"ad {ad:.6e} fd {fd:.6e} (eps 0.02, sign and 35%: {ok_ctr})",
+          flush=True)
+    _check(ok_alb and ok_ctr, "gradient disagrees with finite differences")
+    out.update(fd_albedo=(g_alb, fd_alb), fd_center=(ad, fd))
+
+    # ---- 17c: the whole fit, trace forward; main path: counts from 0;
+    # the profiler runs over ten of the fit's own steps
+    first = min(100, steps // 2)
+    prof = _ProfiledSteps(dev, first=first, n=min(10, steps - first))
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = ir.run(steps=steps, forward="trace", device=dev, progress=prof)
+    fit_s = time.perf_counter() - t0
+    launches_c = {k: v for k, v in _cuda.launch_counts().items() if v}
+    med, wall, busy = rep["median_step_s"], prof.wall, prof.busy
+    idle = None if busy is None else 1.0 - busy / wall
+    print(f"[17c fit, forward 'trace'] {rep['steps']} steps in {fit_s:.1f} "
+          f"s: loss {rep['loss_before']:.4e} -> {rep['loss_after']:.4e}, "
+          f"center {rep['center_recovered']} (err {rep['center_err']}), "
+          f"albedo {rep['albedo_recovered']} (err {rep['albedo_err']}), "
+          f"NaN-gradient steps {rep['nan_grad_steps']}; median step "
+          f"{med * 1e3:.2f} ms; steps {prof.first}-"
+          f"{prof.first + prof.n - 1} of the fit under the profiler "
+          f"{wall * 1e3:.2f} ms ({wall / prof.n * 1e3:.2f} ms a step), "
+          f"device busy "
+          f"{'not measured' if busy is None else f'{busy * 1e3:.2f} ms'} "
+          f"in {prof.n_dev} device activities, idle share of those steps "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}; kernel "
+          f"launches {launches_c}; gate: center < {ir.CENTER_TOL}, albedo "
+          f"< {ir.ALBEDO_TOL}: {rep['ok']}", flush=True)
+    _check(rep["ok"], "the trace-forward fit did not recover the sphere")
+    out.update(trace=rep, trace_fit_s=fit_s, profiled_steps=prof.n,
+               profiled_wall_s=wall, profiled_busy_s=busy, idle_share=idle,
+               device_activities=prof.n_dev)
+
+    # ---- 17d: the same fit, kernel forward (K2/K3 on the card); first
+    # its forward, the auto route, against the plain twins on the card
+    pkw = dict(width=w, height=h, spp=kw["spp"], max_depth=4, device=dev)
+    _cuda.reset_launch_counts()
+    kern = render.render_pass(wrong, cam, 5, **pkw)
+    cmp_launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    plain = render.render_pass(wrong, cam, 5, backend="plain", **pkw)
+    fwd_equal = bool(torch.equal(kern, plain))
+    fwd_err = (kern - plain).abs().max().item()
+    print(f"[17d forward, kernel vs plain] config 4 {w}x{h} {kw['spp']} spp "
+          f"depth 4, seed 5, route "
+          f"{render.resolve_backend(wrong, 'path', 'auto', dev)}: launches "
+          f"{cmp_launches}, max |diff| {fwd_err:.3g}, bitwise equal "
+          f"(required): {fwd_equal}", flush=True)
+    _check(fwd_equal and (cmp_launches.get("megakernel", 0)
+                          + cmp_launches.get("persist", 0) > 0
+                          or dev.type != "cuda"),
+           "the kernel forward disagrees with its plain twins")
+    _, g_k = diff.value_and_grad_loss(wrong, params, target, cam, 5,
+                                      forward="kernel", device=dev, **kw)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    repk = ir.run(steps=steps, forward="kernel", device=dev)
+    fitk_s = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    k23 = counts["persist"] + counts["megakernel"]
+    ok_d = (finite and repk["nan_grad_steps"] == 0
+            and repk["loss_after"] < repk["loss_before"]
+            and (k23 > 0 or dev.type != "cuda"))
+    print(f"[17d fit, forward 'kernel'] {repk['steps']} steps in "
+          f"{fitk_s:.1f} s: loss {repk['loss_before']:.4e} -> "
+          f"{repk['loss_after']:.4e}, center {repk['center_recovered']} "
+          f"(err {repk['center_err']}), albedo {repk['albedo_recovered']} "
+          f"(err {repk['albedo_err']}), recovered by the script's gate: "
+          f"{repk['ok']} (not gated); median step "
+          f"{repk['median_step_s'] * 1e3:.2f} ms; K2 launches "
+          f"{counts['persist']}, K3 launches {counts['megakernel']}; gate: "
+          f"finite gradients ({finite}, NaN-gradient steps "
+          f"{repk['nan_grad_steps']}), loss lowered, K2/K3 launched: {ok_d}",
+          flush=True)
+    _check(ok_d, "the kernel-forward fit failed its gates")
+    out.update(kernel=repk, kernel_fit_s=fitk_s, kernel_fwd_err=fwd_err,
+               kernel_fwd_launches=cmp_launches,
+               kernel_launches={"persist": counts["persist"],
+                                "megakernel": counts["megakernel"]})
+
+    # ---- 17e: the sharded pass on a one-rank process group
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method="file://" + os.path.join(
+            tmp, "pg"), rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            ct = torch.randn((h, w, 3), generator=torch.Generator().manual_seed(
+                0)).to(dev)
+            with torch.no_grad():
+                a = render_pass_sharded(wrong, cam, 7, mesh=mesh, device=dev,
+                                        **kw)
+                b = render.render_pass(wrong, cam, 7, backend="reference",
+                                       device=dev, **kw)
+                s_box = float(render_contract_sharded(
+                    wrong, cam, 7, ct, mesh=mesh, device=dev, **kw))
+                img_w = render_pass_sharded(wrong, cam, 7, mesh=mesh,
+                                            warp_primary="tent", device=dev,
+                                            **kw)
+            ref_box = float(torch.sum(a * ct))
+            leaves = {k: v.to(dev).requires_grad_(True)
+                      for k, v in params.items()}
+            s_w, g_mesh = render_contract_sharded(
+                diff.apply_params(wrong, leaves), cam, 7, ct, mesh=mesh,
+                warp_primary=True, wrt=leaves, device=dev, **kw)
+            ref_w = float(torch.sum(img_w * ct))
+            _, g_one = render_contract_sharded(
+                diff.apply_params(wrong, leaves), cam, 7, ct,
+                warp_primary=True, wrt=leaves, device=dev, **kw)
+        finally:
+            dist.destroy_process_group()
+    equal = bool(torch.equal(a, b))
+    rel_box = abs(s_box - ref_box) / abs(ref_box)
+    rel_w = abs(float(s_w) - ref_w) / abs(ref_w)
+    # the backward's scatter-adds (gathers' gradients) run in no fixed
+    # order, so two runs of one gradient agree to rounding, not bitwise
+    g_rel = max((g_mesh[k] - g_one[k]).abs().max().item()
+                / g_one[k].abs().max().item() for k in g_one)
+    g_same = g_rel <= 1e-5
+    ok_e = equal and rel_box <= 1e-5 and rel_w <= 1e-5 and g_same
+    print(f"[17e sharded, one-rank {backend} group] render_pass_sharded == "
+          f"render_pass(backend='reference') bitwise (required): {equal}; "
+          f"contraction vs sum(image * ct): box rel {rel_box:.2e}, warped "
+          f"rel {rel_w:.2e} (rtol 1e-5); its gradient through the group vs "
+          f"without one: max |d| / max |g| {g_rel:.2e} (<= 1e-5: {g_same})",
+          flush=True)
+    _check(ok_e, "the one-rank sharded pass disagrees")
+    out.update(sharded_equal=equal, contraction_rel=(rel_box, rel_w),
+               group_grad_rel=g_rel)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2026,11 +2306,16 @@ def main() -> int:
     r15 = _phase15(dev)
     r16 = _phase16(dev)
     s1 = r16["res"]
+    r17 = _phase17(dev)
 
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
                "flagship_4k": err4k, "field_1500": errS,
                **{k: r9["errs"][k] for k in r9["k3_cells"]},
-               "quad_field_1024": r12["err"], "smoke_mis": err13}
+               "quad_field_1024": r12["err"], "smoke_mis": err13,
+               "inverse_rendering": r17["kernel_fwd_err"]}
+    # K2 too, where the config-4 forward launched it
+    k2_ir = ({"inverse_rendering": r17["kernel_fwd_err"]}
+             if r17["kernel_fwd_launches"].get("persist") else {})
     kernels = [dict(name="sphere_hit", route="cuda",
                     source="rustraytrace_tpu_torch/csrc/sphere_hit.cu",
                     replaces="rustraytrace_tpu/ops/pallas_hit.py:164",
@@ -2054,10 +2339,12 @@ def main() -> int:
                     replaces="rustraytrace_tpu/ops/pallas_wavefront.py:382",
                     launches=r9["k2_launches"],
                     launches_by_path={"the_next_week": r9["k2_launches"],
-                                      "flagship": counts["persist"]},
-                    max_abs_err=max(img_err, r9["k2_err"]),
+                                      "flagship": counts["persist"],
+                                      "inverse_rendering, forward='kernel'":
+                                      r17["kernel_launches"]["persist"]},
+                    max_abs_err=max(img_err, r9["k2_err"], *k2_ir.values()),
                     max_abs_err_by_route=dict(flagship=img_err,
-                                              **r9["errs"]),
+                                              **r9["errs"], **k2_ir),
                     ms=r9["k2_ms"], plain_ms=r9["k2_plain_ms"],
                     bound_ms=r9["k2_bound"], bound_by=r9["k2_by"],
                     library_ms=None, work=r9["k2_work"],
@@ -2086,7 +2373,9 @@ def main() -> int:
                     launches=counts7["megakernel"],
                     launches_by_path={"book3_cornell_box":
                                       counts7["megakernel"],
-                                      "the_next_week": 0},
+                                      "the_next_week": 0,
+                                      "inverse_rendering, forward='kernel'":
+                                      r17["kernel_launches"]["megakernel"]},
                     max_abs_err=max(k3_errs.values()),
                     max_abs_err_by_route=k3_errs,
                     ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,

@@ -18,8 +18,14 @@ integrators (``camera.py``, ``ops/intersect.py``, ``ops/materials.py``,
 ``ops/textures.py``, ``ops/perlin.py``, ``ops/integrator.py``) behind the
 ``"reference"`` and ``"sphere_kernel"`` backends (the latter with K1 as its
 closest hit), and S1, the dense closest-sphere spike's two kernels
-(``csrc/dense_hit.cu``).  The entry points run on the card
-(``device="cuda"``) unless the caller asks for ``device="cpu"``.
+(``csrc/dense_hit.cu``), and the training path: the silhouette warp
+(``ops/warp.py``), the differentiable pass and its tent splat
+(``render.trace_rays_diff``, ``render.splat_terms``), the mesh and the
+sharded pass and contraction over ``torch.distributed`` (``parallel``),
+the inverse-rendering fit on ``torch.optim`` (``diff``) and the render and
+train-state checkpoints (``utils/checkpoint.py``).  The entry points run
+on the card (``device="cuda"``) unless the caller asks for
+``device="cpu"``.
 """
 
 from .config import CameraParams, RenderConfig, derive_camera
@@ -34,7 +40,7 @@ from .scene import (
     scene_from_numpy,
 )
 from .render import finalize_image, render_image, render_pass
-from . import models
+from . import diff, models, parallel
 
 __all__ = [
     "RenderConfig",
@@ -52,6 +58,8 @@ __all__ = [
     "render_pass",
     "finalize_image",
     "models",
+    "parallel",
+    "diff",
 ]
 
 __version__ = "0.1.0"

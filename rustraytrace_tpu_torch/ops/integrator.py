@@ -109,8 +109,11 @@ def trace_path(draws, o, d, time, scene: Scene, background,
                                           atten * sc.emitted, 0.0)
         new_alive = alive & rec.valid & sc.scattered
         new_atten = atten * sc.attenuation
-        # Russian roulette on the running product (renderer.wgsl:225-231)
-        p = torch.clamp(torch.amax(new_atten, dim=-1), RR_P_MIN, RR_P_MAX)
+        # Russian roulette on the running product (renderer.wgsl:225-231);
+        # the survival probability is a sampling decision, so detached: the
+        # gradient flows through the continuous factors only
+        p = torch.clamp(torch.amax(new_atten, dim=-1), RR_P_MIN,
+                        RR_P_MAX).detach()
         if bounce >= RR_START_BOUNCE:
             new_alive = new_alive & (u[:, 3] <= p)
             new_atten = torch.where(new_alive[:, None],
@@ -212,7 +215,7 @@ def trace_mis(draws, o, d, time, scene: Scene, background,
         alive_hit = alive & rec.valid & sc.scattered
         # book-3 roulette: p from the per-hit attenuation, both branches
         p_rr = torch.clamp(torch.amax(sc.attenuation, dim=-1), RR_P_MIN,
-                           RR_P_MAX)
+                           RR_P_MAX).detach()
         rr_prob = p_rr if bounce >= RR_START_BOUNCE else torch.ones_like(p_rr)
         alive_hit = alive_hit & (u[:, 3] <= rr_prob)
         spec_weight = sc.attenuation / rr_prob[:, None]
@@ -231,7 +234,9 @@ def trace_mis(draws, o, d, time, scene: Scene, background,
         cosine_pdf = torch.clamp(cos_theta, min=0.0) / _PI  # pdf.rs:41-49
         mat_pdf = torch.where(sc.is_lambertian, cosine_pdf, sphere_pdf)
         light_pdf = _light_pdf_value(rec.p, diff_dir, scene)
-        pdf_value = 0.5 * light_pdf + 0.5 * mat_pdf  # pdf.rs:88-91
+        # the mixture density samples the direction: detached, while the
+        # scattering pdf below stays attached (pdf.rs:88-91)
+        pdf_value = (0.5 * light_pdf + 0.5 * mat_pdf).detach()
         # scattering pdf == material pdf (material.rs:63-70, 187-189)
         diff_weight = (sc.attenuation * mat_pdf[:, None]
                        / torch.clamp(pdf_value * rr_prob, min=1e-30)[:, None])

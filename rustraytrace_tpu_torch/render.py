@@ -141,36 +141,100 @@ def effective_spp_per_pass(cfg: RenderConfig, backend: str, spp_total: int,
     return max(1, min(spp_total, max(base, raise_to, _PASS_SPP_FLOOR)))
 
 
-def trace_rays(scene: Scene, cam: CameraParams, seed: int, s_idx,
-               pix: torch.Tensor, px: torch.Tensor, py: torch.Tensor, *,
-               max_depth: int, integrator: str = "path",
-               stratified: bool = False, sqrt_spp: int = 0,
-               backend: str = "reference", hit_fn=None) -> torch.Tensor:
-    """One sample of each ray: absolute sample indices ``s_idx`` (an int,
-    or an int tensor [R]) of pixels ``pix`` (flat indices [R]) at
-    coordinates px, py (float32): camera rays, then ``trace_path`` or
-    ``trace_mis`` (render.py:50-73 there).  Returns the radiance [R, 3].
-    Draws: the camera's 5 from Philox streams (CAMERA, TIME) at bounce 0,
-    each bounce's from streams (BOUNCE[, MIS_A], MEDIA...), keyed by
-    (pixel, sample, bounce, stream)."""
+def _draw_source(scene: Scene, integrator: str, seed: int, s_idx,
+                 pix: torch.Tensor):
+    """The integrators' per-bounce draw source of rays ``pix`` at samples
+    ``s_idx``: streams (BOUNCE[, MIS_A], MEDIA...), keyed by (pixel,
+    sample, bounce, stream)."""
     key = rng.seed_key(seed)
-    cam_draws = rng.uniforms(pix, s_idx, 0, (rng.STREAM_CAMERA,
-                                             rng.STREAM_TIME), 5, key)
-    o, d, time = camera.generate_rays(
-        cam, px, py, cam_draws, camera.strata(s_idx, stratified, sqrt_spp))
-    mis = integrator == "mis"
-    head = (rng.STREAM_BOUNCE, rng.STREAM_MIS_A) if mis else (
-        rng.STREAM_BOUNCE,)
+    head = (rng.STREAM_BOUNCE, rng.STREAM_MIS_A) if integrator == "mis" \
+        else (rng.STREAM_BOUNCE,)
     streams = head + tuple(rng.STREAM_MEDIA + g
                            for g in range(-(-n_media(scene) // 4)))
 
     def draws(bounce: int, n: int) -> torch.Tensor:
         return rng.uniforms(pix, s_idx, bounce, streams, n, key)
 
+    return draws
+
+
+def _camera_draws(seed: int, s_idx, pix: torch.Tensor) -> torch.Tensor:
+    """The camera's 5 uniforms of rays ``pix``: streams (CAMERA, TIME) at
+    bounce 0."""
+    return rng.uniforms(pix, s_idx, 0, (rng.STREAM_CAMERA, rng.STREAM_TIME),
+                        5, rng.seed_key(seed))
+
+
+def trace_rays(scene: Scene, cam: CameraParams, seed: int, s_idx,
+               pix: torch.Tensor, px: torch.Tensor, py: torch.Tensor, *,
+               max_depth: int, integrator: str = "path",
+               stratified: bool = False, sqrt_spp: int = 0,
+               backend: str = "reference", hit_fn=None, cam_draws=None,
+               draws=None) -> torch.Tensor:
+    """One sample of each ray: absolute sample indices ``s_idx`` (an int,
+    or an int tensor [R]) of pixels ``pix`` (flat indices [R]) at
+    coordinates px, py (float32): camera rays, then ``trace_path`` or
+    ``trace_mis`` (render.py:50-73 there).  Returns the radiance [R, 3].
+    Draws: the camera's 5 from Philox streams (CAMERA, TIME) at bounce 0,
+    each bounce's from streams (BOUNCE[, MIS_A], MEDIA...), keyed by
+    (pixel, sample, bounce, stream).  ``cam_draws`` ([R, 5]) and ``draws``
+    (a source ``(bounce, n) -> [R, n]``) replace them, so that a test can
+    hand in the JAX package's uniforms."""
+    if cam_draws is None:
+        cam_draws = _camera_draws(seed, s_idx, pix)
+    if draws is None:
+        draws = _draw_source(scene, integrator, seed, s_idx, pix)
+    o, d, time = camera.generate_rays(
+        cam, px, py, cam_draws, camera.strata(s_idx, stratified, sqrt_spp))
     opts = IntegratorOptions(max_depth=max_depth, bg_mode=cam.bg_mode,
                              backend=backend, hit_fn=hit_fn)
-    trace = trace_mis if mis else trace_path
+    trace = trace_mis if integrator == "mis" else trace_path
     return trace(draws, o, d, time, scene, cam.background, opts)
+
+
+def trace_rays_diff(scene: Scene, cam: CameraParams, seed: int, s_idx,
+                    pix: torch.Tensor, px: torch.Tensor, py: torch.Tensor, *,
+                    max_depth: int, integrator: str = "path",
+                    stratified: bool = False, sqrt_spp: int = 0,
+                    warp: bool = True, cam_draws=None, draws=None):
+    """The differentiable path's inner unit (render.py:76-101 there): the
+    draws of ``trace_rays`` (and its ``cam_draws``/``draws`` overrides),
+    primary rays through ``warp.warped_primary_rays`` (``warp=True`` adds
+    the silhouette warp, False is the value-identical plain forward), the
+    reference integrators.  The caller tent-splats each sample onto its
+    2x2 pixel neighborhood (``splat_terms``).  Returns (radiance * det
+    [R, 3], u_w [R, 2])."""
+    from .ops.warp import warped_primary_rays
+
+    if cam_draws is None:
+        cam_draws = _camera_draws(seed, s_idx, pix)
+    if draws is None:
+        draws = _draw_source(scene, integrator, seed, s_idx, pix)
+    o, d, time, det, u_w = warped_primary_rays(
+        scene, cam, px, py, cam_draws,
+        camera.strata(s_idx, stratified, sqrt_spp), warp=warp)
+    opts = IntegratorOptions(max_depth=max_depth, bg_mode=cam.bg_mode)
+    trace = trace_mis if integrator == "mis" else trace_path
+    rad = trace(draws, o, d, time, scene, cam.background, opts)
+    return rad * det[:, None], u_w
+
+
+def splat_terms(px, py, u_w, valid, width: int, height: int):
+    """The tent splat of a sample at pixel (px, py) + jitter ``u_w`` as four
+    (flat pixel index [R], weight [R]) pairs (render.py:104-119 there).
+    Neighbors outside the image clamp to the border pixel, which keeps the
+    energy; ``valid`` (0/1 float) zeroes padding lanes."""
+    from .ops.warp import splat_weights
+
+    ix = px.to(torch.int64)
+    iy = py.to(torch.int64)
+    dx, dy, w00, w10, w01, w11 = splat_weights(u_w)
+    nx = torch.clamp(ix + dx, 0, width - 1)
+    ny = torch.clamp(iy + dy, 0, height - 1)
+    return ((iy * width + ix, w00 * valid),
+            (iy * width + nx, w10 * valid),
+            (ny * width + ix, w01 * valid),
+            (ny * width + nx, w11 * valid))
 
 
 def _render_pass_reference(scene: Scene, cam: CameraParams, seed: int, *,
