@@ -25,6 +25,11 @@ paths on the card:
   (``rustraytrace_tpu_torch.scripts.inverse_rendering``: 64x36, 16 spp,
   depth 4, 250 Adam steps) through ``diff.fit``, with the trace forward
   and with the kernel forward (K3);
+* the command line (``cli.main``, ``python -m rustraytrace_tpu_torch``,
+  ``torchrun``) on the flagship, the Book-3 box and the final scene, and
+  the sharded image loop (``parallel.render_image_sharded``,
+  ``render_image_multihost``) on a one-rank NCCL group, each bitwise
+  equal to ``render.render_image`` with the same kernel launches;
 
 then the other routes, each also held bitwise against the plain twin at
 its full lane count.  Phases: 1 env, 2 build (registers of every kernel
@@ -65,7 +70,14 @@ the training path (BASELINE config 4, ``scripts/inverse_rendering`` at
 and against central differences, the whole 250-step fit with the trace
 forward (gated on the example's recovery; step time, idle share of a
 step), the same fit with the kernel forward (K3 launches counted), and
-the sharded pass and contraction on a one-rank NCCL group.
+the sharded pass and contraction on a one-rank NCCL group; 18 the entry
+points: the CLI on the flagship (1200x675, 1024 spp, depth 50) ==
+``render_image`` bitwise with equal K2 launches, and on a one-rank NCCL
+group ``--sharded`` on the flagship, the Book-3 box (one K3 launch), the
+final scene (K2's image route) and the stratified reference route, each
+== ``render_image`` bitwise, ``render_image_multihost``, ``torchrun`` and
+``python -m`` of the package in child processes, and ``--backend
+sphere_kernel --sharded`` refused with exit 2.
 The plain twins run at reduced spp on the card (the line of each
 comparison states its size).
 
@@ -1915,6 +1927,258 @@ def _phase17(dev, steps: int = 250) -> dict:
     return out
 
 
+def _cli(dev, argv: list) -> tuple:
+    """``cli.main(argv + ["--device", dev.type])`` in this process: (exit
+    code, wall seconds to a synchronised end, its stderr, the kernels'
+    launch counts of the call, counted from 0)."""
+    import contextlib
+    import io
+
+    from rustraytrace_tpu_torch import cli
+    from rustraytrace_tpu_torch.ops import _cuda
+
+    err = io.StringIO()
+    _cuda.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv + ["--device", dev.type])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return rc, wall, err.getvalue(), _cuda.launch_counts()
+
+
+def _render_image(dev, name: str, over: dict, **kw) -> tuple:
+    """``render.render_image`` of a catalog scene on ``dev``: (image,
+    state, wall seconds, launch counts of the call, counted from 0)."""
+    from rustraytrace_tpu_torch import models, render
+    from rustraytrace_tpu_torch.ops import _cuda
+
+    scene, cfg, integ = models.get_scene(name, over)
+    _cuda.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    img, st = render.render_image(scene, cfg, integrator=integ, device=dev,
+                                  **kw)
+    _sync(dev)
+    return (img, st, time.perf_counter() - t0, _cuda.launch_counts())
+
+
+def _child(cmd: list, cwd: str, timeout: float) -> float:
+    """Run ``cmd`` in a session of its own from ``cwd`` (the repo root on
+    ``PYTHONPATH``); fails the script on a non-zero exit, and kills the
+    whole session at ``timeout``.  Returns its wall seconds."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [cwd] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        _, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise SystemExit(f"chip_smoke: FAILED: {cmd[:6]} timed out")
+    _check(p.returncode == 0, f"{' '.join(cmd)} exited {p.returncode}: "
+           f"{err[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def _phase18(dev, smi: str) -> dict:
+    """The port's entry points at full width: (a) the CLI on the flagship
+    (1200x675, 1024 spp, depth 50, 'auto': sorted K2) == ``render_image``
+    bitwise, with equal K2 launches; inside a one-rank process group (b)
+    the same with ``--sharded``, (c) the Book-3 box sharded (one K3
+    launch), (d) the final scene sharded (K2's image route), (e) the
+    reference route sharded and stratified, (f) ``render_image_multihost``;
+    (g) ``torchrun`` and ``python -m`` of the package in child processes;
+    (h) ``--backend sphere_kernel --sharded`` exits 2."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.ops import _cuda
+    from rustraytrace_tpu_torch.parallel import render_image_multihost
+    from rustraytrace_tpu_torch.utils.image_io import read_ppm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    group = "nccl" if dev.type == "cuda" else "gloo"
+    out: dict = {}
+    flag = ["in_one_weekend", "--spp", "1024", "--depth", "50"]
+    flag_over = dict(samples_per_pixel=1024, max_depth=50)
+    with tempfile.TemporaryDirectory() as tmp:
+        def ppm(name):
+            return os.path.join(tmp, f"{name}.ppm")
+
+        # ---- 18a: the CLI on the flagship vs render_image, both warm
+        # (the first render_image builds nothing: phase 2 did)
+        img_a, _, cold_s, counts_ri = _render_image(dev, "in_one_weekend",
+                                                    flag_over)
+        cfg_a = models.get_scene("in_one_weekend", flag_over)[1]
+        _check((cfg_a.image_width, cfg_a.image_height) == (1200, 675),
+               "in_one_weekend is not the 1200x675 flagship")
+        rc, cli_s, err, counts = _cli(dev, flag + ["-o", ppm("a")])
+        ri_s = _render_image(dev, "in_one_weekend", flag_over)[2]
+        eq_a = rc == 0 and bool(np.array_equal(read_ppm(ppm("a")), img_a))
+        meter_a = err.strip().splitlines()[-1]
+        print(f"[18a cli] in_one_weekend 1200x675 1024 spp depth 50, auto: "
+              f"exit {rc}; PPM == render_image bitwise (required): {eq_a}; "
+              f"K2 launches {counts['persist']} vs render_image's "
+              f"{counts_ri['persist']} (equal, > 0 required); walls: cli "
+              f"{cli_s:.4f} s, render_image {ri_s:.4f} s (first "
+              f"{cold_s:.4f} s) | {smi}", flush=True)
+        print(f"[18a cli meter] {meter_a}", flush=True)
+        _check(eq_a, "the CLI's flagship differs from render_image")
+        _check(counts["persist"] == counts_ri["persist"] > 0,
+               "the CLI's flagship K2 launches differ from render_image's")
+        out.update(cli_s=cli_s, ri_s=ri_s, cold_s=cold_s,
+                   k2_cli=counts["persist"], meter_a=meter_a)
+
+        # the Book-3 box at its config: 600x600, 100 spp in 10x10 strata
+        img_c, st_c, box_s, counts_c_ri = _render_image(
+            dev, "the_rest_of_your_life", {})
+        dist.init_process_group(group, init_method="file://" + os.path.join(
+            tmp, "pg"), rank=0, world_size=1)
+        try:
+            # ---- 18b: the same command, --sharded, on the group, twice:
+            # the group's first all_reduce sets up its communicator
+            walls = []
+            for _ in range(2):
+                rc, shard_s, err, counts = _cli(
+                    dev, flag + ["--sharded", "-o", ppm("b")])
+                eq_b = rc == 0 and bool(np.array_equal(read_ppm(ppm("b")),
+                                                       img_a))
+                walls.append(shard_s)
+                _check(eq_b, "the sharded CLI's flagship differs from 18a")
+                _check(counts["persist"] == out["k2_cli"],
+                       "the sharded CLI's K2 launches differ from 18a's")
+            meter_b = err.strip().splitlines()[-1]
+            print(f"[18b cli --sharded, one-rank {group} group] exit {rc}; "
+                  f"{err.splitlines()[0]}; == 18a bitwise (required): "
+                  f"{eq_b}; K2 launches {counts['persist']} (== 18a "
+                  f"required); walls: first {walls[0]:.4f} s (with the "
+                  f"group's first all_reduce), then {walls[1]:.4f} s | "
+                  f"{smi}", flush=True)
+            print(f"[18b cli meter] {meter_b}", flush=True)
+            out.update(shard_s=walls, k2_shard=counts["persist"],
+                       meter_b=meter_b)
+
+            # ---- 18c: the Book-3 box, sharded: one K3 launch
+            rc, c_s, _, counts = _cli(dev, [
+                "the_rest_of_your_life", "--sharded", "-o", ppm("c"),
+                "--quiet"])
+            img_cc = read_ppm(ppm("c"))
+            eq_c = rc == 0 and bool(np.array_equal(img_cc, img_c))
+            print(f"[18c cli --sharded the_rest_of_your_life] 600x600 100 "
+                  f"spp (10x10 strata) MIS: exit {rc}; == render_image "
+                  f"bitwise (required): {eq_c}; K3 launches "
+                  f"{counts['megakernel']} (render_image "
+                  f"{counts_c_ri['megakernel']}; exactly 1 required), K2 "
+                  f"{counts['persist']}; walls: cli {c_s:.4f} s, "
+                  f"render_image {box_s:.4f} s | {smi}", flush=True)
+            _check(eq_c, "the sharded Book-3 box differs from render_image")
+            _check(counts["megakernel"] == 1 and counts["persist"] == 0,
+                   "the sharded Book-3 box did not take one K3 launch")
+            out.update(box_cli_s=c_s, box_ri_s=box_s,
+                       k3_shard=counts["megakernel"])
+
+            # ---- 18d: the final scene, sharded: K2's image route
+            img_d, _, fin_s, counts_d_ri = _render_image(
+                dev, "the_next_week", {})
+            rc, d_s, _, counts = _cli(dev, [
+                "the_next_week", "--sharded", "-o", ppm("d"), "--quiet"])
+            eq_d = rc == 0 and bool(np.array_equal(read_ppm(ppm("d")),
+                                                   img_d))
+            print(f"[18d cli --sharded the_next_week] 400x400 250 spp "
+                  f"depth 4: exit {rc}; == render_image bitwise "
+                  f"(required): {eq_d}; K2 launches {counts['persist']} vs "
+                  f"render_image's {counts_d_ri['persist']} (equal, > 0 "
+                  f"required); walls: cli {d_s:.4f} s, render_image "
+                  f"{fin_s:.4f} s | {smi}", flush=True)
+            _check(eq_d, "the sharded final scene differs from render_image")
+            _check(counts["persist"] == counts_d_ri["persist"] > 0,
+                   "the sharded final scene's K2 launches differ")
+            out.update(final_cli_s=d_s, final_ri_s=fin_s,
+                       k2_final=counts["persist"])
+
+            # ---- 18e: the reference route sharded, stratified 4x4
+            img_e, _, ref_s, _ = _render_image(
+                dev, "the_rest_of_your_life",
+                dict(image_width=200, samples_per_pixel=16),
+                backend="reference")
+            rc, e_s, _, counts = _cli(dev, [
+                "the_rest_of_your_life", "--width", "200", "--spp", "16",
+                "--backend", "xla", "--sharded", "-o", ppm("e"), "--quiet"])
+            eq_e = rc == 0 and bool(np.array_equal(read_ppm(ppm("e")),
+                                                   img_e))
+            print(f"[18e cli --sharded --backend xla] the_rest_of_your_life"
+                  f" 200x200 16 spp (4x4 strata): exit {rc}; == render_image"
+                  f"(backend='reference') bitwise (required): {eq_e}; kernel"
+                  f" launches {sum(counts.values())}; walls: cli {e_s:.4f} "
+                  f"s, render_image {ref_s:.4f} s", flush=True)
+            _check(eq_e and sum(counts.values()) == 0,
+                   "the sharded reference route differs from render_image")
+
+            # ---- 18f: render_image_multihost on the group
+            scene, cfg, integ = models.get_scene("the_rest_of_your_life")
+            _cuda.reset_launch_counts()
+            img_f, st_f = render_image_multihost(scene, cfg,
+                                                 integrator=integ,
+                                                 device=dev)
+            counts = _cuda.launch_counts()
+            eq_f = (bool(np.array_equal(img_f, img_cc))
+                    and bool(np.array_equal(st_f["accum"], st_c["accum"])))
+            print(f"[18f render_image_multihost] Book-3 box on the one-rank "
+                  f"group: == 18c (image) and render_image (sums) bitwise "
+                  f"(required): {eq_f}; K3 launches {counts['megakernel']}",
+                  flush=True)
+            _check(eq_f and counts["megakernel"] == 1,
+                   "render_image_multihost differs from 18c")
+        finally:
+            dist.destroy_process_group()
+
+        # ---- 18g: the package's entry points in child processes
+        dv = ["--device", dev.type]
+        g1_s = _child([sys.executable, "-m", "torch.distributed.run",
+                       "--standalone", "--nproc_per_node=1", "-m",
+                       "rustraytrace_tpu_torch", "the_rest_of_your_life",
+                       "--sharded", "-o", ppm("g"), "--quiet", *dv], root,
+                      300)
+        eq_g = bool(np.array_equal(read_ppm(ppm("g")), img_cc))
+        g2_s = _child([sys.executable, "-m", "rustraytrace_tpu_torch",
+                       "book1_three_spheres", "--width", "400", "--spp", "16",
+                       "-o", ppm("h"), *dv], root, 300)
+        shape_h = read_ppm(ppm("h")).shape
+        print(f"[18g children] torchrun --standalone --nproc_per_node=1 -m "
+              f"rustraytrace_tpu_torch the_rest_of_your_life --sharded: "
+              f"{g1_s:.1f} s, == 18c bitwise (required): {eq_g}; python3 -m "
+              f"rustraytrace_tpu_torch book1_three_spheres --width 400 "
+              f"--spp 16: {g2_s:.1f} s, image {shape_h}", flush=True)
+        _check(eq_g, "the torchrun CLI's image differs from 18c")
+        _check(shape_h == (225, 400, 3), "the python -m CLI's image shape")
+
+        # ---- 18h: the sphere_kernel route cannot be sharded
+        rc, _, _, counts = _cli(dev, [
+            "book1_three_spheres", "--backend", "sphere_kernel", "--sharded",
+            "-o", ppm("x"), "--quiet"])
+        print(f"[18h cli --backend sphere_kernel --sharded] exit {rc} (2 "
+              f"required), image written: {os.path.exists(ppm('x'))}",
+              flush=True)
+        _check(rc == 2 and not os.path.exists(ppm("x"))
+               and sum(counts.values()) == 0,
+               "--backend sphere_kernel --sharded was not refused")
+    return out
+
 def main() -> int:
     import torch
 
@@ -2307,6 +2571,7 @@ def main() -> int:
     r16 = _phase16(dev)
     s1 = r16["res"]
     r17 = _phase17(dev)
+    r18 = _phase18(dev, smi)
 
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
                "flagship_4k": err4k, "field_1500": errS,
@@ -2341,7 +2606,12 @@ def main() -> int:
                     launches_by_path={"the_next_week": r9["k2_launches"],
                                       "flagship": counts["persist"],
                                       "inverse_rendering, forward='kernel'":
-                                      r17["kernel_launches"]["persist"]},
+                                      r17["kernel_launches"]["persist"],
+                                      "cli in_one_weekend": r18["k2_cli"],
+                                      "cli --sharded in_one_weekend":
+                                      r18["k2_shard"],
+                                      "cli --sharded the_next_week":
+                                      r18["k2_final"]},
                     max_abs_err=max(img_err, r9["k2_err"], *k2_ir.values()),
                     max_abs_err_by_route=dict(flagship=img_err,
                                               **r9["errs"], **k2_ir),
@@ -2375,7 +2645,9 @@ def main() -> int:
                                       counts7["megakernel"],
                                       "the_next_week": 0,
                                       "inverse_rendering, forward='kernel'":
-                                      r17["kernel_launches"]["megakernel"]},
+                                      r17["kernel_launches"]["megakernel"],
+                                      "cli --sharded the_rest_of_your_life":
+                                      r18["k3_shard"]},
                     max_abs_err=max(k3_errs.values()),
                     max_abs_err_by_route=k3_errs,
                     ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,

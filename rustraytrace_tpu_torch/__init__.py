@@ -18,13 +18,23 @@ integrators (``camera.py``, ``ops/intersect.py``, ``ops/materials.py``,
 ``ops/textures.py``, ``ops/perlin.py``, ``ops/integrator.py``) behind the
 ``"reference"`` and ``"sphere_kernel"`` backends (the latter with K1 as its
 closest hit), and S1, the dense closest-sphere spike's two kernels
-(``csrc/dense_hit.cu``), and the training path: the silhouette warp
+(``csrc/dense_hit.cu``), the training path: the silhouette warp
 (``ops/warp.py``), the differentiable pass and its tent splat
-(``render.trace_rays_diff``, ``render.splat_terms``), the mesh and the
-sharded pass and contraction over ``torch.distributed`` (``parallel``),
-the inverse-rendering fit on ``torch.optim`` (``diff``) and the render and
-train-state checkpoints (``utils/checkpoint.py``).  The entry points run
-on the card (``device="cuda"``) unless the caller asks for
+(``render.trace_rays_diff``, ``render.splat_terms``), the inverse-rendering
+fit on ``torch.optim`` (``diff``) and the render and train-state
+checkpoints (``utils/checkpoint.py``); sharding over ``torch.distributed``
+(``parallel``: the mesh, the reference route's sharded pass and
+contraction, the sharded router and image loop, the kernel routes'
+sharded passes, the multi-process bring-up), the command line
+(``cli.py``) and the throughput meter and profiler hooks
+(``utils/metrics.py``).
+
+Entry points: ``python -m rustraytrace_tpu_torch <scene> [options]`` (or
+``torchrun ... -m rustraytrace_tpu_torch <scene> --sharded``), and the
+library's ``render.render_image`` / ``render_pass``,
+``parallel.render_image_sharded`` / ``render_image_multihost``, ``diff.fit``
+and ``scripts.inverse_rendering``.  They run on the card
+(``device="cuda"``, ``--device cuda``) unless the caller asks for
 ``device="cpu"``.
 """
 

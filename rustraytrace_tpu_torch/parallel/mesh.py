@@ -48,6 +48,11 @@ class Mesh:
     def size(self) -> int:
         return self.px * self.spp
 
+    @property
+    def rank(self) -> int:
+        """This rank's index in the group, px-major (0 for one process)."""
+        return self.px_idx * self.spp + self.spp_idx
+
 
 def make_mesh(spp_shards: Optional[int] = None, group=None) -> Mesh:
     """The mesh over ``group`` (default: the world group when one is

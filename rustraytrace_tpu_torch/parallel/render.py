@@ -1,6 +1,8 @@
 """Sharded rendering over a ('px', 'spp') mesh of ``torch.distributed``
-ranks (counterpart: ``rustraytrace_tpu/parallel/render.py``), on the
-reference route.
+ranks (counterpart: ``rustraytrace_tpu/parallel/render.py``): the
+reference route's sharded pass and contraction, the sharded router
+(``resolve_sharded_backend``) and the image loop (``render_image_sharded``),
+which hands the kernel routes to ``parallel/megakernel.py``.
 
 Pixels are blocked over ``px`` (rank i of the axis owns a contiguous run
 of flat pixel indices) and samples over ``spp``; the JAX package's
@@ -27,9 +29,10 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
-from ..config import CameraParams
+from ..config import CameraParams, RenderConfig, derive_camera
 from ..ops._cuda import device as _device
-from ..render import _scene_on, splat_terms, trace_rays, trace_rays_diff
+from ..render import (_DEFAULT_SPP_PER_PASS, _scene_on, render_passes,
+                      splat_terms, trace_rays, trace_rays_diff)
 from ..scene import Scene
 from .mesh import Mesh, make_mesh
 
@@ -93,10 +96,11 @@ def _replicated(scene: Scene, group) -> Scene:
 
 
 def _layout(mesh: Mesh, width: int, height: int, spp: int, chunk: int,
-            dev):
+            sample_offset: int, dev):
     """This rank's units: (pix, px, py, valid, s_idx) of each chunk, its
-    samples repeated over the chunk, sample-major (the reference route's
-    batch); plus (n_pix, n_local, block start)."""
+    samples (absolute indices ``sample_offset + spp_idx * spp_local +
+    [0, spp_local)``) repeated over the chunk, sample-major (the reference
+    route's batch); plus (n_pix, n_local, block start, spp_local)."""
     n_px, n_spp = mesh.shape["px"], mesh.shape["spp"]
     n_pix = width * height
     per_shard = -(-n_pix // n_px)
@@ -104,7 +108,7 @@ def _layout(mesh: Mesh, width: int, height: int, spp: int, chunk: int,
     n_local = _ceil_to(per_shard, chunk_eff)
     spp_local = -(-spp // n_spp)
     lo = mesh.px_idx * n_local
-    s0 = mesh.spp_idx * spp_local
+    s0 = sample_offset + mesh.spp_idx * spp_local
     samples = torch.arange(s0, s0 + spp_local, dtype=torch.int64, device=dev)
     s_rep = samples.repeat_interleave(chunk_eff)
     units = []
@@ -137,13 +141,15 @@ def _run(fn, remat: bool, *args):
 def render_pass_sharded(scene: Scene, cam: CameraParams, seed: int, *,
                         width: int, height: int, spp: int, max_depth: int,
                         mesh: Optional[Mesh] = None, integrator: str = "path",
-                        chunk: int = 65536, remat: bool = True,
-                        backend: str = "reference",
+                        chunk: int = 65536, stratified: bool = False,
+                        sqrt_spp: int = 0, sample_offset: int = 0,
+                        remat: bool = True, backend: str = "reference",
                         warp_primary=False, device="cuda") -> torch.Tensor:
     """Trace ``spp_traced(spp, mesh)`` samples per pixel across the mesh,
-    absolute sample indices ``[0, spp_traced)``, unstratified
-    (parallel/render.py:49-168 there); returns the radiance SUM [H, W, 3],
-    the same on every rank.  ``mesh`` defaults to ``make_mesh()``.
+    absolute sample indices ``sample_offset + [0, spp_traced)``, stratified
+    over a ``sqrt_spp`` grid when asked (parallel/render.py:49-168 there);
+    returns the radiance SUM [H, W, 3], the same on every rank.  ``mesh``
+    defaults to ``make_mesh()``.
 
     ``warp_primary`` selects the differentiable path's estimator: samples
     go through ``render.trace_rays_diff`` and are tent-splatted onto their
@@ -158,8 +164,9 @@ def render_pass_sharded(scene: Scene, cam: CameraParams, seed: int, *,
     if multi and torch.is_grad_enabled():
         scene = _replicated(scene, mesh.group)
     units, n_pix, n_local, lo, spp_local = _layout(
-        mesh, width, height, spp, chunk, dev)
-    kw = dict(max_depth=max_depth, integrator=integrator)
+        mesh, width, height, spp, chunk, sample_offset, dev)
+    kw = dict(max_depth=max_depth, integrator=integrator,
+              stratified=stratified, sqrt_spp=sqrt_spp)
 
     if warp_primary:
         def unit(scene, pix, px, py, valid, s_idx):
@@ -201,12 +208,14 @@ def render_contract_sharded(scene: Scene, cam: CameraParams, seed: int,
                             spp: int, max_depth: int,
                             mesh: Optional[Mesh] = None,
                             integrator: str = "path", chunk: int = 65536,
-                            remat: bool = True,
+                            stratified: bool = False, sqrt_spp: int = 0,
+                            sample_offset: int = 0, remat: bool = True,
                             warp_primary=False, wrt: Optional[dict] = None,
                             device="cuda"):
     """The contraction ``sum(radiance_sum * ct)`` of the sample set
-    ``render_pass_sharded`` traces (the same draws), without the radiance
-    image: each unit's radiance contracts against ``ct`` at once
+    ``render_pass_sharded`` traces (the same draws, and the same
+    ``stratified``, ``sqrt_spp`` and ``sample_offset``), without the
+    radiance image: each unit's radiance contracts against ``ct`` at once
     (parallel/render.py:183-299 there).  ``ct`` [H, W, 3] is the cotangent
     of the radiance SUM; ``warp_primary`` is as in ``render_pass_sharded``
     (a truthy value contracts each sample against the tent splat's gather
@@ -226,12 +235,13 @@ def render_contract_sharded(scene: Scene, cam: CameraParams, seed: int,
     if multi and wrt is None and torch.is_grad_enabled():
         scene = _replicated(scene, mesh.group)
     units, n_pix, n_local, _, _ = _layout(
-        mesh, width, height, spp, chunk, dev)
+        mesh, width, height, spp, chunk, sample_offset, dev)
     # zeros past the image: the padding pixels of the last block
     ct_flat = torch.zeros((n_local * mesh.px, 3), dtype=torch.float32,
                           device=dev)
     ct_flat[:n_pix] = ct.reshape(n_pix, 3).to(dev, torch.float32)
-    kw = dict(max_depth=max_depth, integrator=integrator)
+    kw = dict(max_depth=max_depth, integrator=integrator,
+              stratified=stratified, sqrt_spp=sqrt_spp)
 
     def unit(scene, pix, px, py, valid, s_idx):
         if warp_primary:
@@ -270,3 +280,98 @@ def render_contract_sharded(scene: Scene, cam: CameraParams, seed: int,
             grads.append(flat[at:at + t.numel()].reshape(t.shape))
             at += t.numel()
     return total, dict(zip(names, grads))
+
+
+def resolve_sharded_backend(scene: Scene, integrator: str, mesh: Mesh,
+                            backend: str = "auto", _mk_eligible=None,
+                            _wf_eligible=None, device="cuda") -> str:
+    """Route a sharded render to its per-pass loop: the JAX package's
+    decision table (parallel/render.py:302-346 there).  ``"auto"``:
+    megakernel-eligible -> ``"wavefront"`` for ``path`` and
+    ``"megakernel"`` for ``mis``; else wavefront-eligible ->
+    ``"wavefront"``; else ``"xla"`` (the reference route).  The kernel
+    backends take ``path`` and ``mis``; anything else raises
+    ``ValueError``.  The port's names: ``"reference"`` is ``"xla"``, and
+    ``"plain"`` runs the kernel routes' loop on their plain twins, as
+    ``render.render_pass`` takes it.
+
+    ``_mk_eligible`` / ``_wf_eligible`` (``(scene, integrator, mesh) ->
+    bool``) replace the eligibility predicates of ``parallel/megakernel``
+    so that the table is testable without a card; the default ones are
+    False off a CUDA ``device`` and raise ``RuntimeError`` for
+    ``device="cuda"`` without a card."""
+    from .megakernel import (megakernel_shard_eligible,
+                             wavefront_shard_eligible)
+
+    mk = _mk_eligible or (lambda s, i, m: megakernel_shard_eligible(
+        s, i, m, device=device))
+    wf = _wf_eligible or (lambda s, i, m: wavefront_shard_eligible(
+        s, i, m, device=device))
+    if backend == "reference":
+        backend = "xla"
+    if backend == "auto":
+        if mk(scene, integrator, mesh):
+            backend = "wavefront" if integrator == "path" else "megakernel"
+        elif wf(scene, integrator, mesh):
+            backend = "wavefront"
+        else:
+            backend = "xla"
+    if backend not in ("xla", "megakernel", "wavefront", "plain"):
+        raise ValueError(
+            f"sharded rendering supports backends 'auto', 'xla' "
+            f"('reference'), 'megakernel', 'wavefront', 'plain'; got "
+            f"{backend!r}")
+    if backend != "xla" and integrator not in ("path", "mis"):
+        raise ValueError(
+            f"backend={backend!r} supports integrators 'path' and 'mis'; "
+            f"use 'xla' for integrator={integrator!r}")
+    return backend
+
+
+def render_image_sharded(scene: Scene, cfg: RenderConfig, *,
+                         mesh: Optional[Mesh] = None,
+                         integrator: str = "path", chunk: int = 65536,
+                         progress=None, accum_state: Optional[dict] = None,
+                         backend: str = "auto", on_pass=None, device="cuda"):
+    """Full sharded render: ``render.render_passes`` (the host pass loop)
+    over the sharded pass, sums added over the mesh, finalize
+    (parallel/render.py:349-441 there).  Returns (image_u8 [H, W, 3],
+    {"accum": sum [H, W, 3], "spp_done": n}), the same on every rank (the
+    sums are added with ``all_reduce``, so no gather is needed); a
+    stratified config renders floor(sqrt(spp))^2 samples.  ``on_pass``,
+    when given, receives {"accum": a CPU copy of the running sum,
+    "spp_done": n} after every pass, as ``render.render_image`` gives it.
+    ``mesh`` defaults to ``make_mesh()``.
+
+    The kernel backends run ``parallel.megakernel
+    .render_image_sharded_megakernel``.  There is no fallback: a failed
+    pass raises, and the last ``on_pass`` state is the point to resume
+    from."""
+    dev = _device(device)
+    mesh = make_mesh() if mesh is None else mesh
+    backend = resolve_sharded_backend(scene, integrator, mesh, backend,
+                                      device=dev)
+    loop = dict(progress=progress, accum_state=accum_state, on_pass=on_pass,
+                device=dev)
+    if backend != "xla":
+        from .megakernel import render_image_sharded_megakernel
+
+        return render_image_sharded_megakernel(
+            scene, cfg, mesh=mesh, integrator=integrator, backend=backend,
+            **loop)
+
+    cam = derive_camera(cfg, device=dev)
+    n_spp = mesh.shape["spp"]
+
+    def one_pass(spp, sample_offset, stratified, sqrt_spp):
+        return render_pass_sharded(
+            scene, cam, cfg.seed, width=cfg.image_width,
+            height=cfg.image_height, spp=spp, max_depth=cfg.max_depth,
+            mesh=mesh, integrator=integrator, chunk=chunk,
+            stratified=stratified, sqrt_spp=sqrt_spp,
+            sample_offset=sample_offset, remat=False, device=dev)
+
+    return render_passes(
+        cfg, one_pass,
+        _ceil_to(cfg.spp_per_pass or _DEFAULT_SPP_PER_PASS, n_spp),
+        unit=n_spp, **loop)

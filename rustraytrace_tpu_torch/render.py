@@ -327,12 +327,63 @@ def render_pass(scene: Scene, cam: CameraParams, seed: int, *, width: int,
         device=dev, stats=stats)
 
 
+def samples_total(cfg: RenderConfig) -> int:
+    """Samples a pixel a full render traces: floor(sqrt(spp))^2 when
+    stratified (render.py:351-353 there), else spp."""
+    if cfg.stratified:
+        return int(np.sqrt(cfg.samples_per_pixel)) ** 2
+    return cfg.samples_per_pixel
+
+
+def render_passes(cfg: RenderConfig, pass_fn, per_pass: int, *,
+                  unit: int = 1, progress=None,
+                  accum_state: Optional[dict] = None, on_pass=None,
+                  device="cuda"):
+    """The host pass loop of every full render (``render_image`` and the
+    sharded loops of ``parallel``; render.py:351-380 there).
+    ``pass_fn(spp, sample_offset, stratified, sqrt_spp)`` traces one pass
+    of ``spp`` samples a pixel from absolute sample ``sample_offset``,
+    rounded up to a multiple of ``unit``, and returns its radiance sum
+    [H, W, 3] on the device; a pass takes at most ``per_pass`` samples (a
+    multiple of ``unit``).  A stratified config renders
+    floor(sqrt(spp))^2 samples.  ``accum_state`` from an earlier call
+    resumes the accumulation; ``progress(done, total)`` and
+    ``on_pass({"accum": a CPU copy of the running sum, "spp_done": n})``
+    fire after every pass.  Returns (image_u8 [H, W, 3], {"accum": sum
+    [H, W, 3], "spp_done": n})."""
+    dev = _device(device)
+    h, w = cfg.image_height, cfg.image_width
+    stratified = cfg.stratified
+    sqrt_spp = int(np.sqrt(cfg.samples_per_pixel)) if stratified else 0
+    spp_total = samples_total(cfg)
+    if accum_state is None:
+        accum = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+        done = 0
+    else:
+        accum = torch.as_tensor(np.asarray(accum_state["accum"], np.float32),
+                                device=dev)
+        done = int(accum_state["spp_done"])
+    while done < spp_total:
+        this = min(per_pass, _ceil_to(spp_total - done, unit))
+        accum = accum + pass_fn(this, done, stratified, sqrt_spp)
+        done += _ceil_to(this, unit)
+        if progress is not None:
+            progress(done, spp_total)
+        if on_pass is not None:
+            # a host copy, as the JAX package hands over an array that
+            # np.asarray reads; made only for a callback
+            on_pass({"accum": accum.to("cpu", copy=True), "spp_done": done})
+    accum_np = accum.cpu().numpy()
+    return finalize_image(accum_np, done), {"accum": accum_np,
+                                            "spp_done": done}
+
+
 def render_image(scene: Scene, cfg: RenderConfig, *,
                  integrator: str = "path", chunk: int = 65536, progress=None,
                  accum_state: Optional[dict] = None, backend: str = "auto",
                  on_pass=None, device="cuda"):
-    """Full render: host pass loop over spp batches.  Returns
-    (image_u8 [H, W, 3], {"accum": sum [H, W, 3], "spp_done": n});
+    """Full render: host pass loop over spp batches (``render_passes``).
+    Returns (image_u8 [H, W, 3], {"accum": sum [H, W, 3], "spp_done": n});
     ``accum_state`` from an earlier call resumes the accumulation.  A
     stratified config renders floor(sqrt(spp))^2 samples (render.py:351-353
     there).  ``chunk``: pixels per chunk on the reference routes (at most
@@ -343,32 +394,17 @@ def render_image(scene: Scene, cfg: RenderConfig, *,
     backend = resolve_backend(scene, integrator, backend, dev)
     cam = derive_camera(cfg, device=dev)
     h, w = cfg.image_height, cfg.image_width
-    stratified = cfg.stratified
-    sqrt_spp = int(np.sqrt(cfg.samples_per_pixel)) if stratified else 0
-    spp_total = sqrt_spp * sqrt_spp if stratified else cfg.samples_per_pixel
-    if accum_state is None:
-        accum = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-        done = 0
-    else:
-        accum = torch.as_tensor(np.asarray(accum_state["accum"], np.float32),
-                                device=dev)
-        done = int(accum_state["spp_done"])
     chunk = min(chunk, _ceil_to(h * w, 256))
-    per_pass = effective_spp_per_pass(cfg, backend, spp_total, h * w)
-    while done < spp_total:
-        this = min(per_pass, spp_total - done)
-        accum = accum + render_pass(
-            scene, cam, cfg.seed, width=w, height=h, spp=this,
+
+    def one_pass(spp, sample_offset, stratified, sqrt_spp):
+        return render_pass(
+            scene, cam, cfg.seed, width=w, height=h, spp=spp,
             max_depth=cfg.max_depth, integrator=integrator,
-            sample_offset=done, stratified=stratified, sqrt_spp=sqrt_spp,
-            backend=backend, device=dev, chunk=chunk)
-        done += this
-        if progress is not None:
-            progress(done, spp_total)
-        if on_pass is not None:
-            # a host copy, as the JAX package hands over an array that
-            # np.asarray reads; made only for a callback
-            on_pass({"accum": accum.to("cpu", copy=True), "spp_done": done})
-    accum_np = accum.cpu().numpy()
-    return finalize_image(accum_np, done), {"accum": accum_np,
-                                            "spp_done": done}
+            sample_offset=sample_offset, stratified=stratified,
+            sqrt_spp=sqrt_spp, backend=backend, device=dev, chunk=chunk)
+
+    return render_passes(
+        cfg, one_pass,
+        effective_spp_per_pass(cfg, backend, samples_total(cfg), h * w),
+        progress=progress, accum_state=accum_state, on_pass=on_pass,
+        device=dev)

@@ -77,8 +77,9 @@ def adam_two_groups(params: dict) -> torch.optim.Optimizer:
 
 def masked_clip(masks: dict, max_norm: float = 1.0, nan_steps=None):
     """The optax chain's transforms before Adam: zero NaN gradients, clip
-    all of them to a global norm, then apply the row masks.  Each step
-    whose gradient held a NaN appends 1 to ``nan_steps`` (a list), 0
+    all of them to a global norm (the L2 norm over every entry, taken
+    after the zeroing), then apply the row masks.  Each step whose
+    gradient held a NaN appends 1 to ``nan_steps`` (a list), 0
     otherwise."""
     def transform(grads: dict) -> dict:
         if nan_steps is not None:
@@ -86,7 +87,10 @@ def masked_clip(masks: dict, max_norm: float = 1.0, nan_steps=None):
                                      for g in grads.values())))
         grads = {k: torch.where(torch.isnan(g), 0.0, g)
                  for k, g in grads.items()}
-        torch.nn.utils.clip_grad_norm_(list(grads.values()), max_norm)
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        # optax.clip_by_global_norm's select, on the device (no host sync)
+        grads = {k: torch.where(norm < max_norm, g, g / norm * max_norm)
+                 for k, g in grads.items()}
         return {k: g * masks[k] for k, g in grads.items()}
     return transform
 

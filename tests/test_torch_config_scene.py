@@ -189,11 +189,22 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import rustraytrace_tpu_torch.ops.integrator\n"
         "import rustraytrace_tpu_torch.ops.dense_hit\n"
         "import rustraytrace_tpu_torch.scripts.spike_dense_mxu\n"
+        "import rustraytrace_tpu_torch.cli\n"
+        "import rustraytrace_tpu_torch.utils.metrics\n"
+        "import rustraytrace_tpu_torch.parallel.megakernel\n"
+        "import rustraytrace_tpu_torch.parallel.multihost\n"
         "s, c, _ = rustraytrace_tpu_torch.models.book1_three_spheres(\n"
         "    dict(image_width=8, samples_per_pixel=1, max_depth=2))\n"
         "for b in ('reference', 'sphere_kernel'):\n"
         "    rustraytrace_tpu_torch.render.render_image(s, c, backend=b,\n"
         "                                               device='cpu')\n"
+        "import os, tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    out = os.path.join(d, 'a.ppm')\n"
+        "    rc = rustraytrace_tpu_torch.cli.main(['book1_three_spheres',\n"
+        "        '--width', '8', '--spp', '1', '--depth', '2', '--sharded',\n"
+        "        '-o', out, '--quiet', '--device', 'cpu'])\n"
+        "    assert rc == 0 and os.path.getsize(out) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rustraytrace_tpu' or m.startswith('rustraytrace_tpu.')]\n"
         "assert not bad, bad\n"
