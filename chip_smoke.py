@@ -30,6 +30,11 @@ paths on the card:
   the sharded image loop (``parallel.render_image_sharded``,
   ``render_image_multihost``) on a one-rank NCCL group, each bitwise
   equal to ``render.render_image`` with the same kernel launches;
+* the entry points of ``graft_entry``, the final scene with the sphere grid
+  (``RTT_SPHERE_GRID=1``, ``ops/bvh.py``) through ``render_image``, and the
+  measurement scripts ``scripts.baseline_matrix`` (BASELINE configs 1, 2,
+  3 and 5 at their stated sizes), ``scripts.scaling_bench`` (world size 1)
+  and ``scripts.bench_scenes`` (``flagship``, ``final``);
 
 then the other routes, each also held bitwise against the plain twin at
 its full lane count.  Phases: 1 env, 2 build (registers of every kernel
@@ -77,7 +82,15 @@ group ``--sharded`` on the flagship, the Book-3 box (one K3 launch), the
 final scene (K2's image route) and the stratified reference route, each
 == ``render_image`` bitwise, ``render_image_multihost``, ``torchrun`` and
 ``python -m`` of the package in child processes, and ``--backend
-sphere_kernel --sharded`` refused with exit 2.
+sphere_kernel --sharded`` refused with exit 2; 19 the last ported pieces:
+``graft_entry.entry()`` == ``render_pass`` bitwise and
+``dryrun_multichip(1)``, the sphere grid on the final scene (its tables
+larger than SAH's, K2, K3, K4 and K5 == their twins on them, the
+cell-face winner count, ``render_image`` grid vs SAH within 5 SE with
+walls and work, the K5 route, and K4's on the cloud without the globe),
+``baseline_matrix`` configs 1, 2, 3 and 5, ``scaling_bench``'s three
+backends at world size 1 == their routes bitwise, and ``bench_scenes``
+``flagship`` and ``final``.
 The plain twins run at reduced spp on the card (the line of each
 comparison states its size).
 
@@ -2179,6 +2192,329 @@ def _phase18(dev, smi: str) -> dict:
                "--backend sphere_kernel --sharded was not refused")
     return out
 
+
+def _face_count(sah, grid, dev) -> tuple:
+    """(rays, rays hit, winners that differ) between the SAH and the grid
+    tables of the final scene: the plain twin's per-thread cull
+    (``wavefront._sphere_hits_plain``) on rays aimed at the grid's cell
+    faces and on rays leaving the cloud's spheres; a winner is its t, its
+    sphere's center and r^2."""
+    import torch
+
+    from rustraytrace_tpu_torch import models
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+
+    scene = models.get_scene("the_next_week")[0]
+    vel = scene.sph_cvel.numpy()
+    mask = scene.sph_mask.numpy() > 0
+    static = mask & ~(np.abs(vel).max(axis=-1) > 0)
+    c = scene.sph_center.numpy()[static]
+    r = np.abs(scene.sph_radius.numpy())[static]
+    o, d = _torch_scenes().cell_face_rays(c, r, 1 << 18, seed=19)
+    rng = np.random.default_rng(20)
+    k = rng.choice(np.where(r < 20)[0], 1 << 17)
+    nrm = rng.normal(size=(k.size, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    o = torch.from_numpy(np.concatenate([o, c[k] + r[k, None] * nrm]).astype(
+        np.float32)).to(dev)
+    d = torch.from_numpy(np.concatenate([d, nrm]).astype(np.float32)).to(dev)
+    a = (d * d).sum(dim=1)
+    win = []
+    for tab in (sah, grid):
+        t, i = wf._sphere_hits_plain(tab, *o.unbind(1), *d.unbind(1), a,
+                                     1.0 / a, torch.zeros_like(a))
+        win.append((t, tab.geom[i]))
+    (ts, gs), (tg, gg) = win
+    hit = (ts < 1e30) | (tg < 1e30)
+    differ = hit & ((ts != tg) | (gs != gg).any(dim=1))
+    return o.shape[0], int(hit.sum()), int(differ.sum())
+
+
+def _cloud_scene():
+    """The final scene's 1000-sphere cloud (r = 10 in a 165-cube, turned
+    and moved as there) under its quad light, on a ground sphere, without
+    the image-textured globe: a dense cloud the megakernels take."""
+    from rustraytrace_tpu_torch import SceneBuilder
+
+    rng = np.random.default_rng(5)
+    b = SceneBuilder()
+    b.add_quad((123, 554, 147), (300, 0, 0), (0, 0, 265),
+               b.diffuse_light((7.0, 7.0, 7.0)))
+    b.add_sphere((278.0, -1000.0, 278.0), 1000.0,
+                 b.lambertian((0.48, 0.83, 0.53)))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    c, s = np.cos(np.radians(15.0)), np.sin(np.radians(15.0))
+    for p in rng.uniform(0.0, 165.0, (1000, 3)):
+        b.add_sphere((c * p[0] + s * p[2] - 100.0, p[1] + 270.0,
+                      -s * p[0] + c * p[2] + 395.0), 10.0, white)
+    return b.build()
+
+
+def _phase19(dev) -> dict:
+    """The last ported pieces: (a) the entry points (``graft_entry``:
+    ``entry()``'s pass == ``render_pass`` bitwise, ``dryrun_multichip(1)``);
+    (b) the sphere grid (``RTT_SPHERE_GRID=1``, ``ops/bvh.py``) on the final
+    scene: its tables larger than SAH's, K2, K3, K4 and K5 == their twins
+    on them at full lanes, the cell-face winner count, ``render_image``
+    with the grid and with SAH (3 runs each, alternating) within 5 SE, the
+    COUNT instance's work on both, the K5 route on the grid, and K4's on
+    the cloud without the image-textured globe (grid against SAH);
+    (c) ``scripts.baseline_matrix`` configs 1, 2, 3 and 5; (d)
+    ``scripts.scaling_bench`` at world size 1 on its three backends, each
+    pass == the single-card pass of its route bitwise; (e)
+    ``scripts.bench_scenes`` ``flagship`` and ``final``, then ``final``
+    with the grid and with SAH, 4 runs each, alternating.  Returns the
+    launches and errors for the kernels line."""
+    import os
+
+    import torch
+
+    from rustraytrace_tpu_torch import graft_entry, models, render
+    from rustraytrace_tpu_torch.config import derive_camera
+    from rustraytrace_tpu_torch.ops import _cuda, megakernel as mk
+    from rustraytrace_tpu_torch.ops import wavefront as wf
+    from rustraytrace_tpu_torch.parallel import Mesh
+    from rustraytrace_tpu_torch.scripts import (baseline_matrix,
+                                                bench_scenes, scaling_bench)
+
+    out = dict(launches={}, errs={})
+
+    def counted(fn):
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, _cuda.launch_counts()
+
+    # ---- 19a: graft_entry
+    fn, args = graft_entry.entry(device=dev)
+    got, wall_a, counts_a = counted(lambda: fn(*args))
+    scene_a, cam_a, seed_a = args
+    want = render.render_pass(scene_a, cam_a, seed_a, width=192, height=108,
+                              spp=1, max_depth=8, integrator="path",
+                              chunk=16384, device=dev)
+    eq_a = bool(torch.equal(got, want))
+    dry = graft_entry.dryrun_multichip(1, device=dev)
+    out["launches"]["graft_entry.entry"] = ("persist", counts_a["persist"])
+    print(f"[19a graft_entry] entry(): the flagship 192x108 1 spp depth 8 "
+          f"in {wall_a:.3f} s, launches {counts_a}; == render_pass bitwise "
+          f"(required): {eq_a}; dryrun_multichip(1) on the card: loss "
+          f"{dry['loss']:.9g} (finite required), mesh {dry['mesh']}",
+          flush=True)
+    _check(eq_a and counts_a["persist"] > 0, "entry() is not the flagship's "
+           "K2 render_pass")
+    _check(bool(np.isfinite(dry["loss"])), "the dry run's loss")
+
+    # ---- 19b: the sphere grid on the final scene
+    s9, c9, i9 = models.get_scene("the_next_week")
+    w9, h9, spp9, d9, seed9 = (c9.image_width, c9.image_height,
+                               c9.samples_per_pixel, c9.max_depth, c9.seed)
+    cam9 = derive_camera(c9, device=dev)
+    grid_env = os.environ.pop("RTT_SPHERE_GRID", None)
+    try:
+        sah, _ = _route_tables(s9, cam9, c9, i9, dev)
+        os.environ["RTT_SPHERE_GRID"] = "1"
+        grid, route = _route_tables(s9, cam9, c9, i9, dev)
+        rows_g, rows_s = grid.geom.shape[0], sah.geom.shape[0]
+        print(f"[19b grid tables] the_next_week: sphere rows {rows_g} in "
+              f"{grid.n_clusters} clusters ({grid.n_sclusters} "
+              f"super-clusters) with the grid, {rows_s} in "
+              f"{sah.n_clusters} ({sah.n_sclusters}) with SAH; more rows "
+              f"(required): {rows_g > rows_s}", flush=True)
+        _check(route == "image" and rows_g > rows_s,
+               "the grid did not take effect on the final scene")
+        eq2, err2 = _kernel_vs_plain(grid, "k2", seed9, spp9, d9, iters=8)
+        eq3, err3 = _kernel_vs_plain(grid, "k3", seed9, 2, d9)
+        k4 = mk.mono_pass(grid, seed9, 0, 2, d9)
+        p4 = mk.mono_pass_plain(grid, seed9, 0, 2, d9)
+        eq4, err4 = bool(torch.equal(k4, p4)), torch.abs(k4 - p4).max().item()
+        eq5, err5, _, died, respawned, _ = _k5_vs_twin(
+            grid, seed9, spp=spp9, depth=d9, segments=6)
+        out["errs"] = dict(k2=err2, k3=err3, k4=err4, k5=err5)
+        print(f"[19b grid kernels] {grid.n_lanes} lanes, kernel vs twin "
+              f"bitwise (required): K2 one launch of 8 iterations {eq2} "
+              f"({err2:.3g}), K3 2 spp {eq3} ({err3:.3g}), K4 2 spp {eq4} "
+              f"({err4:.3g}), K5 six segments {eq5} ({err5:.3g}; {died} "
+              f"lanes banked in the first, {respawned} respawned)",
+              flush=True)
+        _check(eq2 and eq3 and eq4 and eq5,
+               "a kernel disagrees with its twin on the grid's tables")
+        n_rays, n_hit, n_diff = _face_count(sah, grid, dev)
+        out["face"] = dict(rays=n_rays, hit=n_hit, differ=n_diff)
+        print(f"[19b cell faces] {n_rays} rays ({n_hit} hit): winners that "
+              f"differ between the grid and SAH tables through the twin's "
+              f"cull: {n_diff}", flush=True)
+        work = {}
+        for name, tab in (("sah", sah), ("grid", grid)):
+            wk = torch.zeros(len(mk.WORK_NAMES), dtype=torch.int64,
+                             device=dev)
+            mk.respawn_pass(tab, seed9, 0, 2, d9, work=wk)
+            work[name] = _work(wk)
+        out["work"] = work
+        g, h = work["grid"], work["sah"]
+        print(f"[19b grid work] K3 COUNT instance, 2 spp: sphere rows "
+              f"{g['sphere_rows']} (SAH {h['sphere_rows']}), cluster boxes "
+              f"{g['cluster_boxes']} (SAH {h['cluster_boxes']}); grid {g}; "
+              f"SAH {h}", flush=True)
+
+        walls, accs, k2n = {"sah": [], "grid": []}, {}, {}
+        for rep in range(3):
+            for name in ("sah", "grid"):
+                if name == "grid":
+                    os.environ["RTT_SPHERE_GRID"] = "1"
+                else:
+                    os.environ.pop("RTT_SPHERE_GRID", None)
+                (img, st), wall, counts = counted(lambda: render.render_image(
+                    s9, c9, integrator=i9, device=dev))
+                walls[name].append(wall)
+                accs[name] = st["accum"] / st["spp_done"]
+                k2n[name] = counts["persist"]
+                _check(counts["persist"] > 0 and counts["megakernel"] == 0,
+                       f"the final scene's {name} render did not run K2")
+        mean_d, z = _agreement(accs["grid"], accs["sah"])
+        px = int((accs["grid"] != accs["sah"]).any(axis=-1).sum())
+        out["launches"]["the_next_week, sphere grid"] = ("persist",
+                                                         k2n["grid"])
+        out["render"] = dict(walls=walls, z=z, pixels_differ=px,
+                             launches=k2n)
+        print(f"[19b grid render_image] the_next_week {w9}x{h9} {spp9} spp "
+              f"depth {d9}, alternating: grid walls "
+              f"{[round(x, 4) for x in walls['grid']]} s, SAH "
+              f"{[round(x, 4) for x in walls['sah']]} s; K2 launches "
+              f"{k2n}; max |channel-mean diff| {mean_d:.3g}, max |z| of "
+              f"4x4 blocks {z:.3f} (< 5 required), pixels that differ {px} "
+              f"of {w9 * h9}", flush=True)
+        _check(z < 5.0 and bool(np.isfinite(accs["grid"]).all()),
+               "the grid's image disagrees with SAH's")
+
+        # the K5 route on the grid; K4's on the cloud without the image
+        # texture (the megakernels take no image scene)
+        acc5, wall5, c5 = counted(lambda: wf.render_pass_wavefront(
+            s9, cam9, seed9, width=w9, height=h9, spp=spp9, max_depth=d9,
+            per_bounce_segments=True, device=dev))
+        cloud = _cloud_scene()
+        k4 = {}
+        for name in ("sah", "grid"):
+            if name == "grid":
+                os.environ["RTT_SPHERE_GRID"] = "1"
+            else:
+                os.environ.pop("RTT_SPHERE_GRID", None)
+            rows = mk.prepare_megakernel(cloud, cam9, width=w9, height=h9,
+                                         device=dev).geom.shape[0]
+            acc, wall, counts = counted(lambda: mk.render_pass_megakernel(
+                cloud, cam9, seed9, width=w9, height=h9, spp=spp9,
+                max_depth=d9, device=dev))
+            k4[name] = (rows, acc.cpu().numpy() / spp9, wall, counts["mono"])
+        os.environ["RTT_SPHERE_GRID"] = "1"
+        _, z4 = _agreement(k4["grid"][1], k4["sah"][1])
+        eq4 = bool(np.array_equal(k4["grid"][1], k4["sah"][1]))
+        out["launches"]["the_next_week, sphere grid (K5)"] = (
+            "segment", c5["segment"])
+        out["launches"]["1000-sphere cloud, sphere grid (K4)"] = (
+            "mono", k4["grid"][3])
+        print(f"[19b grid K5, K4 routes] the_next_week per_bounce_segments "
+              f"{wall5:.3f} s ({c5['segment']} K5); the cloud without the "
+              f"globe through render_pass_megakernel {w9}x{h9} {spp9} spp: "
+              f"grid {k4['grid'][0]} rows, {k4['grid'][2]:.3f} s "
+              f"({k4['grid'][3]} K4), SAH {k4['sah'][0]} rows, "
+              f"{k4['sah'][2]:.3f} s; max |z| {z4:.3f} (< 5 required), "
+              f"bitwise equal {eq4}", flush=True)
+        _check(c5["segment"] > 0 and bool(torch.isfinite(acc5).all()),
+               "the K5 route on the grid")
+        _check(k4["grid"][0] > k4["sah"][0] and k4["grid"][3] == 1
+               and z4 < 5.0, "the K4 route on the grid")
+    finally:
+        os.environ.pop("RTT_SPHERE_GRID", None)
+        if grid_env is not None:
+            os.environ["RTT_SPHERE_GRID"] = grid_env
+
+    # ---- 19c: BASELINE configs 1, 2, 3 and 5 (one JSON line each)
+    out["baseline"] = {}
+    for config in (1, 2, 3, 5):
+        rec, wall, counts = counted(lambda: baseline_matrix.run(
+            config, device=dev))
+        rec["launches"] = {k: v for k, v in counts.items() if v}
+        out["baseline"][config] = rec
+        kern = "persist" if counts["persist"] else "megakernel"
+        out["launches"][f"baseline_matrix config {config}"] = (kern,
+                                                               counts[kern])
+        print(f"[19c baseline_matrix {config}] {wall:.1f} s for the script's "
+              f"warm-up and timed renders; launches {rec['launches']}",
+              flush=True)
+        _check(rec["paths_per_s"] > 0 and counts[kern] > 0,
+               f"BASELINE config {config}")
+
+    # ---- 19d: scaling_bench at world size 1
+    out["scaling"] = {}
+    for backend in ("xla", "megakernel", "wavefront"):
+        scene, cfg = scaling_bench.scene_for(backend, 384, 8, 8)
+        cam = derive_camera(cfg, device=dev)
+        w, h = cfg.image_width, cfg.image_height
+        got, _, counts = counted(lambda: scaling_bench.run_pass(
+            backend, scene, cam, Mesh(1, 1), width=w, height=h, spp=8,
+            depth=8, device=dev))
+        kw = dict(width=w, height=h, spp=8, max_depth=8, device=dev)
+        if backend == "xla":
+            want = render.render_pass(scene, cam, 0, backend="reference",
+                                      chunk=16384, **kw)
+        elif backend == "megakernel":
+            want = mk.render_pass_megakernel(scene, cam, 0, respawn=True,
+                                             **kw)
+        else:
+            want = render.render_pass(scene, cam, 0, **kw)
+        eq = bool(torch.equal(got, want))
+        scaling_bench.main(["--backend", backend])
+        out["scaling"][backend] = {k: v for k, v in counts.items() if v}
+        print(f"[19d scaling_bench {backend}] one-rank pass == the "
+              f"single-card pass bitwise (required): {eq}; launches "
+              f"{out['scaling'][backend]}", flush=True)
+        _check(eq, f"scaling_bench {backend} differs from its route")
+    out["launches"]["scaling_bench megakernel"] = (
+        "megakernel", out["scaling"]["megakernel"].get("megakernel", 0))
+    out["launches"]["scaling_bench wavefront"] = (
+        "persist", out["scaling"]["wavefront"].get("persist", 0))
+
+    # ---- 19e: bench_scenes flagship and final
+    for case in ("flagship", "final"):
+        rec, wall, counts = counted(lambda: bench_scenes.run_case(
+            case, device=dev))
+        kern = "persist" if counts["persist"] else "megakernel"
+        out["launches"][f"bench_scenes {case}"] = (kern, counts[kern])
+        print(f"[19e bench_scenes {case}] {wall:.1f} s (a warm-up and 2 "
+              f"timed passes); launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        _check(rec["paths_per_s"] > 0, f"bench_scenes {case}")
+
+    # the grid against SAH on `final`, alternating in this process: each
+    # entry is run_case's best of 2; the rows are the prepared tables'
+    grid_env = os.environ.pop("RTT_SPHERE_GRID", None)
+    ab, rows = {"sah": [], "grid": []}, {}
+    try:
+        for rep in range(4):
+            for name in ("sah", "grid"):
+                if name == "grid":
+                    os.environ["RTT_SPHERE_GRID"] = "1"
+                else:
+                    os.environ.pop("RTT_SPHERE_GRID", None)
+                rec = bench_scenes.run_case("final", device=dev)
+                ab[name].append(rec["elapsed_s"])
+                rows[name] = mk._PREP_CACHE[-1][2].geom.shape[0]
+    finally:
+        os.environ.pop("RTT_SPHERE_GRID", None)
+        if grid_env is not None:
+            os.environ["RTT_SPHERE_GRID"] = grid_env
+    out["final_ab"] = dict(walls=ab, rows=rows)
+    print(f"[19e bench_scenes final, grid against SAH] alternating in one "
+          f"process, best of 2 each: grid {ab['grid']} s ({rows['grid']} "
+          f"sphere rows), SAH {ab['sah']} s ({rows['sah']} rows); grid "
+          f"rows > SAH rows (required): {rows['grid'] > rows['sah']}",
+          flush=True)
+    _check(rows["grid"] > rows["sah"], "the grid did not take effect on "
+           "bench_scenes final")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2572,12 +2908,18 @@ def main() -> int:
     s1 = r16["res"]
     r17 = _phase17(dev)
     r18 = _phase18(dev, smi)
+    r19 = _phase19(dev)
+
+    def by_path(kernel: str) -> dict:
+        """Phase 19's main paths that launched ``kernel``."""
+        return {p: n for p, (k, n) in r19["launches"].items() if k == kernel}
 
     k3_errs = {"book3_cornell_box": k3_err, "book2_cornell_box": err8,
                "flagship_4k": err4k, "field_1500": errS,
                **{k: r9["errs"][k] for k in r9["k3_cells"]},
                "quad_field_1024": r12["err"], "smoke_mis": err13,
-               "inverse_rendering": r17["kernel_fwd_err"]}
+               "inverse_rendering": r17["kernel_fwd_err"],
+               "the_next_week, sphere grid": r19["errs"]["k3"]}
     # K2 too, where the config-4 forward launched it
     k2_ir = ({"inverse_rendering": r17["kernel_fwd_err"]}
              if r17["kernel_fwd_launches"].get("persist") else {})
@@ -2611,10 +2953,13 @@ def main() -> int:
                                       "cli --sharded in_one_weekend":
                                       r18["k2_shard"],
                                       "cli --sharded the_next_week":
-                                      r18["k2_final"]},
-                    max_abs_err=max(img_err, r9["k2_err"], *k2_ir.values()),
+                                      r18["k2_final"], **by_path("persist")},
+                    max_abs_err=max(img_err, r9["k2_err"], *k2_ir.values(),
+                                    r19["errs"]["k2"]),
                     max_abs_err_by_route=dict(flagship=img_err,
-                                              **r9["errs"], **k2_ir),
+                                              **r9["errs"], **k2_ir, **{
+                                                  "the_next_week, sphere "
+                                                  "grid": r19["errs"]["k2"]}),
                     ms=r9["k2_ms"], plain_ms=r9["k2_plain_ms"],
                     bound_ms=r9["k2_bound"], bound_by=r9["k2_by"],
                     library_ms=None, work=r9["k2_work"],
@@ -2647,7 +2992,8 @@ def main() -> int:
                                       "inverse_rendering, forward='kernel'":
                                       r17["kernel_launches"]["megakernel"],
                                       "cli --sharded the_rest_of_your_life":
-                                      r18["k3_shard"]},
+                                      r18["k3_shard"],
+                                      **by_path("megakernel")},
                     max_abs_err=max(k3_errs.values()),
                     max_abs_err_by_route=k3_errs,
                     ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
@@ -2678,8 +3024,8 @@ def main() -> int:
                     replaces="rustraytrace_tpu/ops/pallas_megakernel.py:2087",
                     launches=r10["launches"],
                     launches_by_path={"book3_cornell_box (K4)":
-                                      r10["launches"]},
-                    max_abs_err=max(r10["err"], err13),
+                                      r10["launches"], **by_path("mono")},
+                    max_abs_err=max(r10["err"], err13, r19["errs"]["k4"]),
                     ms=r10["ms"], plain_ms=r10["plain_ms"],
                     bound_ms=r10["bound"], bound_by=r10["by"],
                     library_ms=None, work=r10["work"],
@@ -2697,8 +3043,9 @@ def main() -> int:
                     replaces="rustraytrace_tpu/ops/pallas_wavefront.py:291",
                     launches=r11["launches"],
                     launches_by_path={"the_next_week (K5)":
-                                      r11["launches"]},
-                    max_abs_err=r11["err"], ms=r11["ms"],
+                                      r11["launches"], **by_path("segment")},
+                    max_abs_err=max(r11["err"], r19["errs"]["k5"]),
+                    ms=r11["ms"],
                     plain_ms=r11["plain_ms"], bound_ms=r11["bound"],
                     bound_by=r11["by"], library_ms=None, work=r11["work"],
                     ms_shape=f"{r11['R']} lanes, the first segment (one "

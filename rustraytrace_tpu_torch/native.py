@@ -35,6 +35,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, ip, ip, fp, fp]
+    lib.rtt_finalize_ppm_p3.restype = ctypes.c_longlong
+    lib.rtt_finalize_ppm_p3.argtypes = [fp, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_longlong, ctypes.c_char_p]
     lib.rtt_u8_ppm_p3.restype = ctypes.c_longlong
     lib.rtt_u8_ppm_p3.argtypes = [ctypes.POINTER(ctypes.c_ubyte),
                                   ctypes.c_int, ctypes.c_int,
@@ -65,6 +68,15 @@ def load() -> ctypes.CDLL:
                 lib = ctypes.CDLL(_build())
             _lib = _bind(lib)
         return _lib
+
+
+def available() -> bool:
+    """Whether the library loads or builds; never raises."""
+    try:
+        load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _cptr(a, ctype):
@@ -108,4 +120,16 @@ def ppm_p3_from_u8(img_u8: np.ndarray) -> bytes:
     h, w, _ = img_u8.shape
     buf = ctypes.create_string_buffer(64 + h * w * 12)
     n = load().rtt_u8_ppm_p3(_cptr(img_u8, ctypes.c_ubyte), h, w, buf)
+    return ctypes.string_at(buf, n)
+
+
+def finalize_ppm_p3(accum: np.ndarray, spp: int) -> bytes:
+    """(radiance sum [H, W, 3], spp) -> P3 text, the finalization fused in
+    C++ (native/src/ppm.cpp; render_io.rs:3-31): the bytes of
+    ``ppm_p3_from_u8(render.finalize_image(accum, spp))``."""
+    accum = np.ascontiguousarray(accum, np.float32)
+    h, w, _ = accum.shape
+    buf = ctypes.create_string_buffer(64 + h * w * 12)
+    n = load().rtt_finalize_ppm_p3(_cptr(accum, ctypes.c_float), h, w, spp,
+                                   buf)
     return ctypes.string_at(buf, n)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -533,14 +534,21 @@ class Prepared:
 
 def _cluster_spheres(scene: Scene, max_leaf: int):
     """(order, cl_start, cl_min, cl_max, s_start, s_min, s_max,
-    n_ssc_static) of the active spheres' SAH clusters over their motion-
-    swept bounds (pallas_megakernel.py:2276-2377).  Clusters are permuted
-    super-cluster-contiguous once there are 16 of them.  A moving scene
-    with at least 64 static spheres clusters its static and moving spheres
-    apart, static first, each under its own super-clusters, and
-    ``n_ssc_static`` counts the static ones; ``s_start`` is None without
-    super-clusters."""
+    n_ssc_static) of the active spheres' clusters over their motion-swept
+    bounds (pallas_megakernel.py:2276-2377): the C++ SAH cut, or the
+    sphere grid of ``bvh.cluster_spheres_spatial`` with
+    ``RTT_SPHERE_GRID=1`` (then ``order`` lists a sphere once for every
+    cell it overlaps).  Clusters are permuted super-cluster-contiguous once
+    there are 16 of them.  A moving scene with at least 64 static spheres
+    clusters its static and moving spheres apart, static first, each under
+    its own super-clusters, and ``n_ssc_static`` counts the static ones;
+    ``s_start`` is None without super-clusters."""
     from ..native import build_aabb_clusters, build_sphere_clusters
+    from .bvh import cluster_spheres_spatial
+
+    def cluster(c, r):
+        return cluster_spheres_spatial(c, r, max_leaf=max_leaf,
+                                       build_sah=build_sphere_clusters)
 
     mask = _np(scene.sph_mask) > 0
     cen = _np(scene.sph_center).astype(np.float32)
@@ -571,8 +579,7 @@ def _cluster_spheres(scene: Scene, max_leaf: int):
     if "motion" in scene.features and moving_p.any() and n_static >= 64:
         parts = []
         for idx in (np.where(~moving_p)[0], np.where(moving_p)[0]):
-            o, cs, mn, mx = build_sphere_clusters(cmid[idx], rswept[idx],
-                                                  max_leaf=max_leaf)
+            o, cs, mn, mx = cluster(cmid[idx], rswept[idx])
             parts.append(supers(idx[np.asarray(o)], np.asarray(cs, np.int32),
                                 mn, mx, force=True))
         (o1, cs1, mn1, mx1, ss1, smn1, smx1), (o2, cs2, mn2, mx2, ss2, smn2,
@@ -584,8 +591,7 @@ def _cluster_spheres(scene: Scene, max_leaf: int):
                                ).astype(np.int32),
                 np.concatenate([smn1, smn2]), np.concatenate([smx1, smx2]),
                 ss1.shape[0] - 1)
-    order, cl_start, cl_min, cl_max = build_sphere_clusters(
-        cmid, rswept, max_leaf=max_leaf)
+    order, cl_start, cl_min, cl_max = cluster(cmid, rswept)
     return (*supers(order, cl_start, cl_min, cl_max, force=False), 0)
 
 
@@ -731,14 +737,26 @@ _PREP_CACHE: list = []  # [(scene, (camera key, keywords), prepared)]
 _PREP_CACHE_MAX = 4
 
 
+def prep_knobs() -> tuple:
+    """The environment knobs the tables depend on, keyed as the JAX
+    package keys its cache (pallas_megakernel.py:2531-2536):
+    ``RTT_SPHERE_GRID`` by whether it is set, ``RTT_GRID_RES`` and
+    ``RTT_GRID_FILL`` by value."""
+    env = os.environ
+    return (bool(env.get("RTT_SPHERE_GRID")), env.get("RTT_GRID_RES"),
+            env.get("RTT_GRID_FILL"))
+
+
 def prepare_megakernel_cached(scene: Scene, cam: CameraParams,
                               **kw) -> Prepared:
     """prepare_megakernel with a tiny cache: the passes and repeated renders
     of one scene share their tables.  Entries hold strong references and
     are matched with ``is`` on the scene (so a reused id() can never alias
-    a stale entry), by value on the camera (``CameraParams.key``) and on
-    the keywords."""
-    key = (cam.key, tuple(sorted((k, str(v)) for k, v in kw.items())))
+    a stale entry), by value on the camera (``CameraParams.key``), on the
+    keywords and on the environment knobs (``prep_knobs``), so a toggled
+    knob never returns stale tables."""
+    key = (cam.key, tuple(sorted((k, str(v)) for k, v in kw.items())),
+           prep_knobs())
     for ent in _PREP_CACHE:
         if ent[0] is scene and ent[1] == key:
             return ent[2]

@@ -48,6 +48,7 @@ winner.  The cull is not exactly a full scan: see ``_sphere_hits_plain``.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -157,7 +158,14 @@ RAY_SORT_MAX_LANES = 1 << 21
 
 def ray_sort_heuristic(scene: Scene, n_lanes: int = 0) -> bool:
     """Sort lanes between launches on primitive-heavy scenes (>= 256
-    active primitives) of at most RAY_SORT_MAX_LANES lanes."""
+    active primitives) of at most RAY_SORT_MAX_LANES lanes
+    (pallas_wavefront.py:234-265).  ``RTT_SORT_RAYS=1`` forces the sort on
+    below 2^24 lanes (where float32 slot ids stay exact), ``0`` forces it
+    off.  The choice changes no table, so the prep cache does not key
+    it."""
+    env = os.environ.get("RTT_SORT_RAYS")
+    if env is not None:
+        return env not in ("0", "") and n_lanes < (1 << 24)
     if n_lanes > RAY_SORT_MAX_LANES:
         return False
     return active_primitive_count(scene) >= 256

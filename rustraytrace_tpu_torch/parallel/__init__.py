@@ -4,7 +4,7 @@ ranks (counterpart: ``rustraytrace_tpu/parallel``): pixel blocks on
 (``mesh.py``), the reference route's sharded pass and contraction, which
 ``diff`` runs on, the sharded router and image loop (``render.py``), the
 kernel routes' sharded passes (``megakernel.py``) and the multi-process
-bring-up (``multihost.py``).
+bring-up and CPU jobs (``multihost.py``).
 """
 
 from .mesh import Mesh, make_mesh, mesh_axis_sizes
@@ -18,7 +18,7 @@ from .megakernel import (megakernel_shard_eligible,
                          sharded_megakernel_wiring, spp_traced_mesh,
                          wavefront_shard_eligible)
 from .multihost import (global_mesh, initialize, make_assemble,
-                        render_image_multihost)
+                        render_image_multihost, run_cpu_ranks)
 
 __all__ = [
     "make_mesh",
@@ -40,4 +40,5 @@ __all__ = [
     "global_mesh",
     "make_assemble",
     "render_image_multihost",
+    "run_cpu_ranks",
 ]

@@ -6,7 +6,10 @@
 * :func:`global_mesh` builds the ('px', 'spp') mesh over every rank of the
   job;
 * :func:`render_image_multihost` is ``render_image_sharded`` on that
-  mesh; every rank gets the whole framebuffer.
+  mesh; every rank gets the whole framebuffer;
+* :func:`run_cpu_ranks` starts a job of several processes on the CPU
+  (gloo), where the JAX package forces virtual CPU devices: one card
+  cannot host several NCCL ranks.
 
 A lost process fails the job; restart it and resume from the last pass
 checkpoint (``utils.checkpoint``): the accumulation state is (sum,
@@ -17,7 +20,12 @@ works unchanged (``initialize`` is then a no-op).
 from __future__ import annotations
 
 import os
-from typing import Optional
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -99,3 +107,64 @@ def render_image_multihost(scene, cfg, *, mesh: Optional[Mesh] = None,
         scene, cfg, mesh=global_mesh() if mesh is None else mesh,
         integrator=integrator, chunk=chunk, progress=progress,
         accum_state=accum_state, on_pass=on_pass, device=device)
+
+
+def run_cpu_ranks(n: int, args: List[str], timeout: float = 600.0
+                  ) -> List[str]:
+    """Run ``python <args>`` as a job of ``n`` processes on the CPU, with
+    ``torchrun``'s variables (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+    ``MASTER_ADDR=127.0.0.1``, a free ``MASTER_PORT``), so that each calls
+    ``initialize(device="cpu")`` to join the gloo group.  The package's
+    parent directory leads ``PYTHONPATH``.  Raises ``RuntimeError`` with
+    its error output as soon as a process fails (the others are killed,
+    as they would wait for it), and ``TimeoutError`` after ``timeout``
+    seconds; returns the standard outputs in rank order."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    path = [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+        os.pathsep) if p]
+    procs, files = [], []
+    try:
+        for r in range(n):
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(path),
+                       WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK=str(r),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+            files.append((out, err))
+            procs.append(subprocess.Popen([sys.executable, *args], env=env,
+                                          stdout=out, stderr=err))
+        def failed(r):
+            err = files[r][1]
+            err.seek(0)
+            return RuntimeError(
+                f"rank {r} of {n} exited {procs[r].returncode}:\n"
+                f"{err.read().decode(errors='replace')[-4000:]}")
+
+        deadline = time.monotonic() + timeout
+        while [p.poll() for p in procs].count(None):
+            bad = [r for r, p in enumerate(procs) if p.returncode]
+            if bad:
+                raise failed(bad[0])
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"a job of {n} ranks ran past "
+                                   f"{timeout} s")
+            time.sleep(0.05)
+        bad = [r for r, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise failed(bad[0])
+        outs = []
+        for out, _ in files:
+            out.seek(0)
+            outs.append(out.read().decode())
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in files:
+            out.close()
+            err.close()

@@ -10,6 +10,8 @@ and the entry points' default device.  The CUDA kernels are held against
 the plain twin on the card by ``chip_smoke.py``."""
 
 import dataclasses
+import os
+import sys
 import types
 
 import numpy as np
@@ -37,6 +39,9 @@ from rustraytrace_tpu_torch import SceneBuilder, models, render  # noqa: E402
 from rustraytrace_tpu_torch.config import derive_camera  # noqa: E402
 from rustraytrace_tpu_torch.ops import megakernel as mk  # noqa: E402
 from rustraytrace_tpu_torch.ops import wavefront as wf  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_scenes  # noqa: E402
 
 NEW_SCENES = ["book2_bouncing_spheres", "book2_checkered_spheres",
               "book2_earth", "book2_perlin_spheres", "book2_simple_light",
@@ -94,10 +99,50 @@ def test_book2_prepared_tables_equal_jax(name):
     ops/megakernel.py)."""
     if not jnative.available():
         pytest.skip("the JAX package's native library does not load")
-    w = 48
-    jscene, jcfg, _ = jmodels.get_scene(name, dict(image_width=w))
-    scene, cfg, _ = models.get_scene(name, dict(image_width=w))
-    h = cfg.image_height
+    jscene, jcfg, _ = jmodels.get_scene(name, dict(image_width=48))
+    scene, cfg, _ = models.get_scene(name, dict(image_width=48))
+    _assert_tables_equal_jax(jscene, jcfg, scene, cfg)
+
+
+@pytest.mark.parametrize("knob,value", [("RTT_SPHERE_GRID", "1"),
+                                        ("RTT_GRID_RES", "4"),
+                                        ("RTT_GRID_FILL", "0.95")])
+def test_book2_prepared_tables_under_knob_equal_jax(monkeypatch, knob,
+                                                    value):
+    """The same tables on the final scene with a knob of the prep set: the
+    sphere grid, the grid at 4 cells an axis, and a fill threshold above
+    the cloud's, under which the grid is declined and the SAH tables
+    stay."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library does not load")
+    for k in ("RTT_SPHERE_GRID", "RTT_GRID_RES", "RTT_GRID_FILL"):
+        monkeypatch.delenv(k, raising=False)
+    over = dict(image_width=48)
+    jscene, jcfg, _ = jmodels.get_scene("book2_final_scene", over)
+    scene, cfg, _ = models.get_scene("book2_final_scene", over)
+    cam = derive_camera(cfg, "cpu")
+    kw = dict(width=48, height=cfg.image_height, device="cpu")
+    base = mk.prepare_megakernel(scene, cam, **kw)
+    if knob != "RTT_SPHERE_GRID":
+        monkeypatch.setenv("RTT_SPHERE_GRID", "1")
+        grid = mk.prepare_megakernel(scene, cam, **kw)
+    monkeypatch.setenv(knob, value)
+    prep = _assert_tables_equal_jax(jscene, jcfg, scene, cfg)
+    if knob == "RTT_SPHERE_GRID":  # spheres listed in every cell they cross
+        assert prep.geom.shape[0] > base.geom.shape[0]
+    elif knob == "RTT_GRID_RES":
+        assert prep.geom.shape[0] > base.geom.shape[0]
+        assert prep.geom.shape[0] != grid.geom.shape[0]
+    else:
+        assert grid.geom.shape[0] > base.geom.shape[0]
+        np.testing.assert_array_equal(prep.geom.numpy(), base.geom.numpy())
+
+
+def _assert_tables_equal_jax(jscene, jcfg, scene, cfg):
+    """The port's prepared tables of a scene against JAX's
+    ``prepare_megakernel(..., interpret=True, segment=True)``; returns the
+    port's."""
+    w, h = cfg.image_width, cfg.image_height
     arrays, st = jmk.prepare_megakernel(
         jscene, jax_derive_camera(jcfg), width=w, height=h, spp=8,
         max_depth=8, interpret=True, segment=True)
@@ -111,7 +156,8 @@ def test_book2_prepared_tables_equal_jax(name):
     acols = [mk.J_KIND, mk.J_AR, mk.J_AG, mk.J_AB, mk.J_FUZZ, mk.J_IOR,
              mk.J_CX, mk.J_CY, mk.J_CZ, mk.J_INVR]
     acols += [mk.J_VX, mk.J_VY, mk.J_VZ] if st["moving"] else []
-    acols += [mk.J_TEXK, mk.J_C2R, mk.J_C2G, mk.J_C2B, mk.J_INVS]
+    if prep.book2:  # the texture columns
+        acols += [mk.J_TEXK, mk.J_C2R, mk.J_C2G, mk.J_C2B, mk.J_INVS]
     acols += [mk.J_IMG] if st["has_image"] else []
     atab = np.asarray(arrays["atab"]).reshape(len(acols), -1)[:, :n].T
     np.testing.assert_array_equal(prep.tab.numpy()[:, acols], atab)
@@ -120,7 +166,8 @@ def test_book2_prepared_tables_equal_jax(name):
                                       np.asarray(arrays[k]), k)
     for k in ("n_clusters", "n_sclusters", "n_ssc_static", "unroll",
               "b_unroll", "n_boxes", "n_bclusters", "n_media", "rows",
-              "moving", "has_checker", "has_noise", "has_image"):
+              "n_quads", "n_qclusters", "moving", "has_checker",
+              "has_noise", "has_image"):
         assert getattr(prep, k) == st[k], k
     if prep.n_boxes:
         for k in ("btab", "bclb", "bcls"):
@@ -153,6 +200,7 @@ def test_book2_prepared_tables_equal_jax(name):
             prep.texels.numpy(),
             np.asarray(arrays["img_dma"]).reshape(-1)[:4 * t].reshape(
                 t, 4)[:, :3])
+    return prep
 
 
 def _moving_cloud(b):

@@ -193,6 +193,12 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import rustraytrace_tpu_torch.utils.metrics\n"
         "import rustraytrace_tpu_torch.parallel.megakernel\n"
         "import rustraytrace_tpu_torch.parallel.multihost\n"
+        "import rustraytrace_tpu_torch.ops.bvh\n"
+        "import rustraytrace_tpu_torch.graft_entry\n"
+        "import rustraytrace_tpu_torch.scripts.baseline_matrix\n"
+        "import rustraytrace_tpu_torch.scripts.bench_scenes\n"
+        "import rustraytrace_tpu_torch.scripts.scaling_bench\n"
+        "rustraytrace_tpu_torch.graft_entry.dryrun_multichip(1, device='cpu')\n"
         "s, c, _ = rustraytrace_tpu_torch.models.book1_three_spheres(\n"
         "    dict(image_width=8, samples_per_pixel=1, max_depth=2))\n"
         "for b in ('reference', 'sphere_kernel'):\n"
@@ -206,7 +212,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "        '-o', out, '--quiet', '--device', 'cpu'])\n"
         "    assert rc == 0 and os.path.getsize(out) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'rustraytrace_tpu' or m.startswith('rustraytrace_tpu.')]\n"
+        " or m == 'rustraytrace_tpu' or m.startswith('rustraytrace_tpu.')"
+        " or m == 'bench']\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

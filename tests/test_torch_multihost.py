@@ -213,3 +213,26 @@ def test_initialize_explicit_arguments(monkeypatch):
     assert cards == [1, 2]
     assert groups[0] == ("nccl", dict(init_method="file:///x",
                                       world_size=8, rank=5))
+
+
+def test_run_cpu_ranks_environment_and_a_failed_rank():
+    """``run_cpu_ranks`` gives each process torchrun's variables and
+    returns the outputs in rank order; a rank that fails raises at once
+    with its error output, and the rank still waiting is killed."""
+    import time
+
+    from rustraytrace_tpu_torch.parallel import run_cpu_ranks
+
+    outs = run_cpu_ranks(2, ["-c", (
+        "import os; print(os.environ['RANK'], os.environ['WORLD_SIZE'], "
+        "os.environ['MASTER_ADDR'], int(os.environ['MASTER_PORT']) > 0)")])
+    assert [o.split() for o in outs] == [
+        [str(r), "2", "127.0.0.1", "True"] for r in range(2)]
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 of 2 exited 3"):
+        run_cpu_ranks(2, ["-c", (
+            "import os, sys, time\n"
+            "if os.environ['RANK'] == '1':\n"
+            "    sys.exit(3)\n"
+            "time.sleep(60)")])
+    assert time.monotonic() - t0 < 30

@@ -3,8 +3,9 @@ with a given ``SceneBuilder`` class, so that the JAX package's builder and
 the port's build the same scene: a field of random quads (the JAX
 package's tests/test_quad_cluster.py ``_quad_field``) and its volumetric
 MIS scene (tests/test_round4_tpu.py ``_smoke_mis_scene``), with their
-camera settings; and the scene of an image-textured constant medium,
-which the kernel routes do not cover.  Imports numpy only."""
+camera settings; the scene of an image-textured constant medium, which
+the kernel routes do not cover; and rays aimed at the cell faces of the
+sphere grid.  Imports numpy only."""
 
 import numpy as np
 
@@ -74,3 +75,38 @@ FIELD_CFG = dict(aspect_ratio=1.0, vfov=60.0, lookfrom=(0, 0, 60),
 # inside the field, the case pallas_megakernel.py:201-205 measured
 FIELD_INSIDE_CFG = dict(aspect_ratio=1.0, vfov=60.0, lookfrom=(0, 0, 0),
                         lookat=(0, 0, -20), focus_dist=10.0)
+
+
+def cell_face_rays(centers, radii, n, seed, cell_r_mult=4.0, res=8):
+    """(origins [n', 3], unit directions [n', 3]) float32 of rays that
+    strike spheres of a cloud where the sphere grid
+    (``ops/bvh.py grid_bin_spheres``) cuts them: each ray aims at a point
+    of a small sphere's surface on the nearest face plane of its cell,
+    from 0.5-30 units outside the surface.  Spheres whose nearest plane
+    misses them are dropped, so n' <= n."""
+    centers = np.asarray(centers, np.float32)
+    radii = np.abs(np.asarray(radii, np.float32))
+    rng = np.random.default_rng(seed)
+    r_med = float(np.median(radii))
+    small = np.where(2.0 * radii <= cell_r_mult * r_med)[0]
+    lo = (centers[small] - radii[small, None]).min(axis=0)
+    hi = (centers[small] + radii[small, None]).max(axis=0)
+    cell = max(cell_r_mult * r_med, float((hi - lo).max()) / res)
+    k = rng.choice(small, n)
+    ax = rng.integers(0, 3, n)
+    rows = np.arange(n)
+    plane = lo[ax] + np.round((centers[k, ax] - lo[ax]) / cell) * cell
+    off = plane - centers[k, ax]
+    keep = np.abs(off) < 0.999 * radii[k]
+    ring = np.sqrt(np.maximum(radii[k] ** 2 - off ** 2, 0.0))
+    ang = rng.uniform(0.0, 2.0 * np.pi, n)
+    p = np.zeros((n, 3))
+    p[rows, ax] = plane
+    p[rows, (ax + 1) % 3] = centers[k, (ax + 1) % 3] + ring * np.cos(ang)
+    p[rows, (ax + 2) % 3] = centers[k, (ax + 2) % 3] + ring * np.sin(ang)
+    nrm = (p - centers[k]) / radii[k, None]
+    out = rng.normal(size=(n, 3))
+    out /= np.linalg.norm(out, axis=1, keepdims=True)
+    out = np.where((out * nrm).sum(axis=1, keepdims=True) < 0.0, -out, out)
+    o = p + rng.uniform(0.5, 30.0, (n, 1)) * out
+    return o[keep].astype(np.float32), (-out[keep]).astype(np.float32)
